@@ -1,0 +1,192 @@
+"""Port building blocks vs the JAX package on the CPU: unpack, scoring,
+exact top-k and segment residency. Inputs come from numpy seeds and go
+through both packages as numpy arrays."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from iresearch_tpu.formats.bitpack import BITS, pack_blocks, unpack_jnp  # noqa: E402
+from iresearch_tpu.search.scorers import BM25, TFIDF, BoostScore, score_block  # noqa: E402
+from iresearch_tpu_torch.formats.bitpack import unpack_torch  # noqa: E402
+from iresearch_tpu_torch.ops.topk import topk_docs  # noqa: E402
+from iresearch_tpu_torch.search.scorers import (  # noqa: E402
+    score_block_torch,
+    score_expr_torch,
+)
+
+SCORERS = [BM25(), BM25(k=0.9, b=0.4), BM25(b=0.0), TFIDF(),
+           TFIDF(with_norms=False), BoostScore()]
+SCORER_IDS = ["bm25", "bm25_k09_b04", "bm15", "tfidf", "tfidf_nonorm", "boost"]
+
+
+def _words(rng, n, b):
+    """Random planar words whose lanes use every bit of the width
+    (b = 32 lanes set the sign bit, the case the int32 view must keep)."""
+    vals = rng.integers(0, 1 << b, size=(n, 128), dtype=np.uint64)
+    return pack_blocks(vals.astype(np.uint32), b)
+
+
+@pytest.mark.parametrize("b", BITS)
+def test_unpack_matches_jnp(b):
+    w = _words(np.random.default_rng(b), 37, b)
+    want = np.asarray(unpack_jnp(jnp.asarray(w), b))
+    got = unpack_torch(torch.from_numpy(w.view(np.int32)), b).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want)
+
+
+def _score_inputs(seed):
+    rng = np.random.default_rng(seed)
+    f = rng.integers(0, 40, size=(16, 128)).astype(np.float32)
+    dl = rng.integers(1, 300, size=(16, 128)).astype(np.float32)
+    w = rng.uniform(0.1, 5.0, size=(16, 1)).astype(np.float32)
+    return w, f, dl, np.float32(rng.uniform(20.0, 80.0))
+
+
+# tolerance: the same operations in the same order on both sides; XLA may
+# still contract or reassociate on the CPU, so allow 2 ulp-ish (rtol 1e-6)
+@pytest.mark.parametrize("scorer", SCORERS, ids=SCORER_IDS)
+def test_score_block_matches_jax(scorer):
+    w, f, dl, avgdl = _score_inputs(1)
+    want = np.asarray(
+        score_block(scorer, jnp.asarray(w), jnp.asarray(f), jnp.asarray(dl),
+                    jnp.float32(avgdl), xp=jnp)
+    )
+    got = score_block_torch(
+        scorer, torch.from_numpy(w), torch.from_numpy(f), torch.from_numpy(dl),
+        torch.tensor(avgdl),
+    ).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0.0)
+    assert np.all(got[f == 0] == 0.0)
+
+
+@pytest.mark.parametrize("scorer", SCORERS, ids=SCORER_IDS)
+def test_score_expr_matches_jax(scorer):
+    from iresearch_tpu.ops.dense_scan import _score_expr
+
+    w, f, dl, avgdl = _score_inputs(2)
+    want = np.asarray(
+        _score_expr(scorer, jnp.asarray(w), jnp.asarray(f), jnp.asarray(dl),
+                    jnp.float32(avgdl), jnp)
+    )
+    got = score_expr_torch(
+        scorer, torch.from_numpy(w), torch.from_numpy(f), torch.from_numpy(dl),
+        float(avgdl),
+    ).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0.0)
+
+
+def _jax_topk_canonical(x, docs, k):
+    """JAX topk_docs, reordered by (score desc, doc asc): the JAX function
+    fixes only the boundary tie group, interior ties keep lane order."""
+    from iresearch_tpu.exec.candidates import topk_docs as jtopk
+
+    v, d = jtopk(jnp.asarray(x), jnp.asarray(docs), k)
+    v, d = np.asarray(v), np.asarray(d)
+    o = np.lexsort((d, -v))
+    return v[o], d[o]
+
+
+TOPK_CASES = {
+    "random": (np.random.default_rng(0).normal(size=10_000).astype(np.float32), 10),
+    "ties_cross_chunk": (
+        np.where(np.isin(np.arange(4096), [5, 300, 1030, 2050, 4000, 6, 301, 1031]),
+                 7.0, 0.0).astype(np.float32), 6),
+    "neg_inf": (np.full(5000, -np.inf, np.float32), 10),
+    "small": (np.arange(64, dtype=np.float32), 10),
+    "four_way_tie": (np.asarray([1, 1, 1, 0.5], np.float32), 2),
+    "signed_zero": (np.asarray([0.0, -0.0, 1.0, -0.0, -1.0], np.float32), 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOPK_CASES))
+def test_topk_docs_by_position_matches_lax(case):
+    """docs=None ranks by lane: bit-identical to lax.top_k, ties included."""
+    from jax import lax
+
+    x, k = TOPK_CASES[case]
+    rv, ri = lax.top_k(jnp.asarray(x), k)
+    v, i = topk_docs(torch.from_numpy(x), None, k)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+
+
+@pytest.mark.parametrize("case", sorted(TOPK_CASES))
+def test_topk_docs_matches_jax(case):
+    x, k = TOPK_CASES[case]
+    docs = np.random.default_rng(3).permutation(len(x)).astype(np.int32)
+    wv, wd = _jax_topk_canonical(x, docs, k)
+    v, d = topk_docs(torch.from_numpy(x), torch.from_numpy(docs), k)
+    np.testing.assert_array_equal(v.numpy(), wv)
+    np.testing.assert_array_equal(d.numpy(), wd)
+
+
+def test_topk_docs_batched_with_parked_docs():
+    """[Q, n] rows, -inf lanes parked at IMAX (the dslice convention)."""
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 5, size=(6, 300)).astype(np.float32)
+    x[x == 0] = -np.inf
+    docs = np.where(np.isfinite(x), rng.permutation(300)[None, :], 2**31 - 1).astype(np.int32)
+    v, d = topk_docs(torch.from_numpy(x), torch.from_numpy(docs), 10)
+    for q in range(6):
+        wv, wd = _jax_topk_canonical(x[q], docs[q], 10)
+        np.testing.assert_array_equal(v[q].numpy(), wv)
+        np.testing.assert_array_equal(d[q].numpy(), wd)
+
+
+@pytest.fixture(scope="module")
+def small_reader():
+    from iresearch_tpu.index.segment import SegmentReader
+    from iresearch_tpu_torch.bench_mix import build_segment_data
+
+    return SegmentReader("blocks", build_segment_data(20_000))
+
+
+def _np(t):
+    return t.numpy()
+
+
+def test_device_state_matches_jax_device_field(small_reader):
+    """Every array of the port's residency equals the JAX DeviceField's
+    bit for bit (u32 words compared through their int32 view)."""
+    from iresearch_tpu_torch.index.segment import device_state
+
+    sr = small_reader
+    jf = sr.device_field("body")
+    st = device_state(sr, torch.device("cpu"))
+    tf = st.field("body")
+    assert device_state(sr, "cpu") is st
+
+    def same(t, a):
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        got = _np(t)
+        assert got.dtype == a.dtype and got.shape == a.shape
+        np.testing.assert_array_equal(got, a)
+
+    for name in ("doc_words", "freq_words", "nrm_words", "base", "bmax", "bmaxf"):
+        for t, a in zip(getattr(tf, name), getattr(jf, name)):
+            same(t, a)
+    same(tf.norms, jf.norms)
+    same(tf.norms_u16, jf.norms_u16)
+    same(tf.norms_grid(), jf.norms_grid())
+    cache = sr.dense_cache("body")
+    assert cache is not None
+    for c, pool in enumerate(cache.pools):
+        same(tf.dense_words(cache, c), jf.dense_words(cache, c))
+    same(st.alive, sr.device().alive)
+    assert tf.avgdl == jf.avgdl
+
+
+def test_dl_rows_widens_u16_exactly():
+    from iresearch_tpu_torch.index.segment import dl_rows
+
+    n = np.asarray([[1, 255, 256, 32767], [32768, 40000, 65535, 7]], np.uint16)
+    t = torch.from_numpy(n)
+    np.testing.assert_array_equal(dl_rows(t).numpy(), n.astype(np.float32))
+    rows = torch.tensor([1, 0, 1])
+    np.testing.assert_array_equal(dl_rows(t, rows).numpy(), n[[1, 0, 1]].astype(np.float32))
