@@ -17,7 +17,19 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    fails unless each kernel launched; compares all 400 results with the
    plain-torch run of the same batch (docs exact, scores rtol 1e-5) and
    5 queries per category with the numpy oracle (``HostQuery``);
-7. times synchronised batched passes (QPS, for the record).
+7. times synchronised batched passes (QPS, for the record);
+8. on the same segment, drives the single-query executor
+   (``DeviceQuery(..., device=dev)``) over ``bench.py``'s breadth
+   categories but Phrase and PrefixHot, and one ``QueryBatch`` with a
+   query per tier that decodes postings rows (fold, aux, wand, direct,
+   sort, join, gridmix; planner knobs, where a tier needs them, set for
+   that query's plan alone and printed). Each is run with the launch
+   counts reset before it and fails unless K3 (every batch tier) or the
+   category's kernels launched; each result passes the exactness gate
+   against the plain-torch run and against ``HostQuery``; K3 is held bit
+   for bit against its plain version on the rows that a fold group and a
+   join group really gather, and timed; synchronised ms per query are
+   printed for every category and tier.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -46,6 +58,7 @@ REPLACES = {
 }
 PER_CATEGORY_ORACLE = 5
 PASSES = 20  # timed batched passes
+SINGLE_REPS = 20  # timed runs per breadth category and tier (bench.py's 20)
 
 
 def phase(name, t0):
@@ -206,10 +219,25 @@ def oracle_topk(flt, sr, scorer, k):
     return docs[o], sc[o]
 
 
+def assert_gate(gv, gd, wd, wv, what):
+    """The repo's exactness gate (as tests/topk_util.py applies it)
+    on one top-k: (gv, gd) with -inf for non-matches against the matches
+    (wd, wv) of a reference in (score desc, doc asc) order — same matches,
+    scores to rtol 1e-5, doc order exact except for swaps inside
+    near-ties."""
+    fin = np.isfinite(gv)
+    gd, gv = gd[fin], gv[fin]
+    if len(gd) != len(wd):
+        raise AssertionError(f"{what}: {len(gd)} vs {len(wd)} hits")
+    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-6, err_msg=what)
+    want = dict(zip(wd.tolist(), wv.tolist()))
+    for g, w, s in zip(gd.tolist(), wd.tolist(), wv.tolist()):
+        if g != w and not (g in want and abs(want[g] - s) <= 1e-5 * abs(s) + 1e-6):
+            raise AssertionError(f"{what}: doc {g} vs {w}")
+
+
 def check_oracle(vals, docs, tasks, sr, scorer, k):
-    """The exactness gate of CLAUDE.md (as tests/topk_util.py applies it):
-    same matches, scores to rtol 1e-5, doc order exact except for swaps
-    inside near-ties."""
+    """5 queries per category of the mix against the numpy oracle."""
     seen = Counter()
     n = 0
     for qi, (cat, flt) in enumerate(tasks):
@@ -217,15 +245,7 @@ def check_oracle(vals, docs, tasks, sr, scorer, k):
             continue
         seen[cat] += 1
         wd, wv = oracle_topk(flt, sr, scorer, k)
-        fin = np.isfinite(vals[qi])
-        gd, gv = docs[qi][fin], vals[qi][fin]
-        if len(gd) != len(wd):
-            raise AssertionError(f"oracle q{qi} {cat}: {len(gd)} vs {len(wd)} hits")
-        np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-6)
-        want = dict(zip(wd.tolist(), wv.tolist()))
-        for g, w, s in zip(gd.tolist(), wd.tolist(), wv.tolist()):
-            if g != w and not (g in want and abs(want[g] - s) <= 1e-5 * abs(s) + 1e-6):
-                raise AssertionError(f"oracle q{qi} {cat}: doc {g} vs {w}")
+        assert_gate(vals[qi], docs[qi], wd, wv, f"oracle q{qi} {cat}")
         n += 1
     print(f"oracle (HostQuery, numpy): {n} queries {dict(seen)} pass the exactness gate")
 
@@ -269,6 +289,171 @@ def profile_passes(torch, prep, path, kind, smi, passes=5):
         print(f"  group {tier:8s} Q={len(qis):3d}: {ms:.4f} ms between events "
               f"({wall_ms:.4f} ms wall per call incl. warm-up)")
     print(f"per tier, ms between events for the whole pass: {dict(per_tier)}")
+
+
+def profile_tiers(torch, prep, smi, runs=3):
+    """torch.profiler over ``runs`` synchronised runs of each tier group of
+    phase 8: device ms per run and the three largest device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iresearch_tpu_torch.exec.batch import KERNELS
+
+    print(f"tier profile ({smi}), {runs} runs each:")
+    for tier, _q, fn, args, kw in prep.calls:
+        fn(KERNELS, *args, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(runs):
+                fn(KERNELS, *args, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) / runs
+        ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        by_name = Counter()
+        for e in ops:
+            by_name[e.name] += e.device_time_total
+        busy = sum(by_name.values()) / runs / 1e3
+        top = ", ".join(f"{us / runs / 1e3:.4f} ms {name[:60]}"
+                        for name, us in by_name.most_common(3))
+        print(f"  {tier:8s} wall {wall * 1e3:.4f} ms, device {busy:.4f} ms, "
+              f"{len(ops) / runs:.0f} device ops: {top}")
+
+
+def check_result(torch, got, plain, flt, sr, scorer, k, what):
+    """One top-k (vals, docs tensors) through the exactness gate against
+    the plain-torch run and against ``HostQuery``."""
+    gv, gd = (t.cpu().numpy() for t in got)
+    pv, pd = (t.cpu().numpy() for t in plain)
+    fin = np.isfinite(pv)
+    assert_gate(gv, gd, pd[fin], pv[fin], f"{what} vs plain")
+    wd, wv = oracle_topk(flt, sr, scorer, k)
+    assert_gate(gv, gd, wd, wv, f"{what} vs oracle")
+    return int(fin.sum())
+
+
+def expected_kernels(tier, plan):
+    """The kernels a single query's tier must launch: K1 for the fused
+    scan, K2 and K3 for dslice, K3 wherever postings rows are decoded;
+    the skyline tier has no kernel (plain torch, as XLA on the TPU)."""
+    if tier == "scan":
+        return ("dense_scan_rowmax",)
+    if tier == "dslice":
+        return ("dma_row_slices", "decode_rows")
+    if tier != "skyline" and plan.groups:
+        return ("decode_rows",)
+    return ()
+
+
+def sync_ms(torch, fn, reps=SINGLE_REPS):
+    """Host ms per call of ``fn`` over ``reps`` calls ending in a
+    synchronise, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t1) * 1e3 / reps
+
+
+def run_breadth(torch, sr, scorer, k, dev, smi):
+    """Phase 8a: the single-query executor over bench.py's breadth
+    categories. Phrase is left out because the single query's
+    ``device_phrase=True`` default runs it on the device, which is not
+    ported yet; PrefixHot because bench.py reports it apart."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec.executor import DeviceQuery
+    from iresearch_tpu_torch.kernels import build as kb
+
+    for name, flt, wand in bench_mix.breadth_tasks(sr):
+        if name in ("Phrase", "PrefixHot"):
+            continue
+        dq = DeviceQuery(flt, [sr], scorer, wand=wand, device=dev)
+        tier = dq.call(0, k)[0]
+        kb.reset_launch_counts()
+        got = dq.execute_segment_async(0, k)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in kb.launch_counts().items() if c}
+        need = expected_kernels(tier, dq.plan_for_k(0, k))
+        if not all(launches.get(n) for n in need):
+            raise AssertionError(f"breadth {name} ({tier}): launches {launches}, needs {need}")
+        hits = check_result(torch, got, dq.execute_segment_async(0, k, plain=True),
+                            flt, sr, scorer, k, f"breadth {name}")
+        ms = sync_ms(torch, lambda: dq.execute_segment_async(0, k))
+        print(f"breadth {name:18s} tier {tier:8s} {hits:2d} hits, launches {launches}: "
+              f"{ms:.4f} ms/query synchronised ({SINGLE_REPS} runs) on {smi}")
+
+
+def run_tiers(torch, sr, scorer, k, dev, smi, kern):
+    """Phase 8b: one QueryBatch with a query per row-decoding tier, each
+    plan compiled under its own planner knobs; K3 must launch in every
+    tier; K3 in gather form is held against its plain version on the rows
+    that the fold and join groups decode."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec.batch import KERNELS, PLAIN, Kernels, QueryBatch
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.ops import decode as dc
+
+    tasks = bench_mix.tier_tasks(sr)
+    qb = QueryBatch([f for _t, f, _k in tasks], [sr], scorer, wand=True, device=dev)
+    for q, (tier, _f, knobs) in zip(qb.queries, tasks):
+        if knobs:
+            with bench_mix.planner_knobs(**knobs):
+                q.plan(0)
+            print(f"tier {tier}: planner knobs {knobs} set for this query's plan "
+                  f"alone; plan cache cleared before and after")
+    prep = qb.prepare(0, k)
+    tiers = [c[0] for c in prep.calls]
+    if tiers != [t for t, _f, _k in tasks]:
+        raise AssertionError(f"batch groups {tiers}, expected one per tier")
+    k3_total = 0
+    for (tier, _q, fn, args, kw), (_t, flt, _k) in zip(prep.calls, tasks):
+        kb.reset_launch_counts()
+        got = fn(KERNELS, *args, **kw)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in kb.launch_counts().items() if c}
+        if not launches.get("decode_rows"):
+            raise AssertionError(f"tier {tier}: K3 never launched ({launches})")
+        k3_total += launches["decode_rows"]
+        plain = fn(PLAIN, *args, **kw)
+        hits = check_result(torch, (got[0][0], got[1][0]), (plain[0][0], plain[1][0]),
+                            flt, sr, scorer, k, f"tier {tier}")
+        ms = sync_ms(torch, lambda: fn(KERNELS, *args, **kw))
+        print(f"tier {tier:8s} {hits:2d} hits, launches {launches}: "
+              f"{ms:.4f} ms/query synchronised ({SINGLE_REPS} runs) on {smi}")
+
+    # K3 in gather form on the rows the fold and join groups really decode
+    recorded = []
+
+    def recording(*a, **kw):
+        recorded.append((a, kw))
+        return dc.decode_rows(*a, **kw)
+
+    rec_kern = Kernels(KERNELS.rowmax, KERNELS.row_slices, recording)
+    for tier, _q, fn, args, kw in prep.calls:
+        if tier in ("fold", "join"):
+            fn(rec_kern, *args, **kw)
+    nrows = 0
+    gathered = 0
+    for a, kw in recorded:
+        got = dc.decode_rows(*a, **kw)
+        want = dc.decode_rows_ref(*a, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"K3 gather form differs from plain on {a[3].shape[0]} rows")
+        nrows += a[3].shape[0]
+        gathered += int((a[3] != a[4]).sum())
+    print(f"K3 gather form vs plain: bit-exact on {len(recorded)} calls of the fold and "
+          f"join groups, {nrows} rows ({gathered} with rows_d != rows_f)")
+    kern["decode_rows"].update(
+        gather_rows=nrows,
+        gather_ms=cuda_ms(torch, lambda: [dc.decode_rows(*a, **kw) for a, kw in recorded]),
+        gather_plain_ms=cuda_ms(torch, lambda: [dc.decode_rows_ref(*a, **kw) for a, kw in recorded]),
+        gather_launches=k3_total,
+    )
+    print(f"K3 gather form: {kern['decode_rows']['gather_ms']:.4f} ms vs plain "
+          f"{kern['decode_rows']['gather_plain_ms']:.4f} ms for those {nrows} rows on {smi}")
+    return prep
 
 
 def main() -> int:
@@ -378,8 +563,22 @@ def main() -> int:
     print(f"batched passes: {PASSES} x {len(tasks)} queries in {el:.4f} s "
           f"-> {qps:.1f} QPS on {kind} ({smi})")
     phase("7 timing", t0)
+
+    t0 = time.perf_counter()
+    run_breadth(torch, sr, scorer, k, dev, smi)
+    tier_prep = run_tiers(torch, sr, scorer, k, dev, smi, kern)
+    phase("8 breadth and tiers", t0)
     if args.profile:
         profile_passes(torch, prep, args.profile, kind, smi)
+        profile_tiers(torch, tier_prep, smi)
+
+    # the port and this script import nothing of JAX, even where it is
+    # installed (iresearch_tpu_torch/_host.py)
+    jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax"
+                      or m == "iresearch_tpu.exec.executor")
+    if jax_mods:
+        raise AssertionError(f"JAX modules imported: {jax_mods[:5]}")
+    print("imports: no JAX module loaded")
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],

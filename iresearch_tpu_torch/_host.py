@@ -1,17 +1,17 @@
-"""The JAX package's jax-free planner modules, importable without jax.
+"""The JAX package's jax-free planner modules, imported without jax.
 
 ``iresearch_tpu/exec/__init__.py`` imports ``executor.py``, which imports
-jax, so a plain ``import iresearch_tpu.exec.plan`` needs jax even though
+jax, so a plain ``import iresearch_tpu.exec.plan`` imports jax even though
 ``plan.py``, ``plancache.py`` and ``skyline.py`` are jax-free at their top
-level. This module is the only place the port touches
-``iresearch_tpu.exec``:
+level. The port never imports jax, even where it is installed. This
+module is the only place the port touches ``iresearch_tpu.exec``:
 
-* where jax is importable (the test process, which runs both packages),
-  the three modules import as usual, so the JAX package is untouched;
-* where it is not (the machine with the card), ``iresearch_tpu.exec`` is
-  registered as a bare package whose ``__path__`` is the real directory
-  and whose ``__init__.py`` is not run; the three files then import under
-  their real names.
+* if the package is already imported (a process that runs both
+  packages, such as the tests), the three modules import from it;
+* otherwise ``iresearch_tpu.exec`` is registered as a package whose
+  ``__path__`` is the real directory and whose ``__init__.py`` runs only
+  when a name of the package itself is first asked for (``DeviceQuery``,
+  ``search_device``); submodules import under their real names.
 
 Nothing in the port may call code that reaches ``exec/executor.py``.
 """
@@ -35,12 +35,24 @@ def _register_bare_exec() -> None:
     spec = importlib.machinery.ModuleSpec(name, None, is_package=True)
     spec.submodule_search_locations = [path]
     mod = importlib.util.module_from_spec(spec)
+
+    def __getattr__(attr: str):
+        # dunders and submodule names stay with the import system; any
+        # other name runs the real __init__ (which imports jax) once
+        if attr.startswith("__") or os.path.exists(os.path.join(path, attr + ".py")):
+            raise AttributeError(attr)
+        del mod.__dict__["__getattr__"]
+        init = os.path.join(path, "__init__.py")
+        with open(init) as f:
+            exec(compile(f.read(), init, "exec"), mod.__dict__)
+        return getattr(mod, attr)
+
+    mod.__getattr__ = __getattr__
     sys.modules[name] = mod
     iresearch_tpu.exec = mod
 
 
-if importlib.util.find_spec("jax") is None:
-    _register_bare_exec()
+_register_bare_exec()
 
 plan = importlib.import_module("iresearch_tpu.exec.plan")
 plancache = importlib.import_module("iresearch_tpu.exec.plancache")

@@ -13,8 +13,9 @@ and task ranks (``bench.py:57-86,123-172,203-226``):
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -92,10 +93,10 @@ def load_or_build(num_docs: int, cache_dir: Optional[str]):
     return data, False
 
 
-def task_mix(sr) -> List[Tuple[str, object]]:
-    """The 400-query batched mix over reader ``sr`` (``bench.py:203-226``)."""
-    from iresearch_tpu.search import filters as F
-
+def _ranked(sr):
+    """(term_at, high, med, low): ``term_at(rank)`` is the body term of that
+    df rank; high, med and low are ``bench.py``'s rank bands 2-81,
+    200-279 and 2000-2079."""
     fp = sr.data.fields["body"]
     tv = sr.terms("body")
     order = np.argsort(-fp.entries[:, 0].astype(np.int64))
@@ -106,6 +107,14 @@ def task_mix(sr) -> List[Tuple[str, object]]:
     high = [term_at(i) for i in range(2, 82)]
     med = [term_at(i) for i in range(200, 280)]
     low = [term_at(i) for i in range(2000, 2080)]
+    return term_at, high, med, low
+
+
+def task_mix(sr) -> List[Tuple[str, object]]:
+    """The 400-query batched mix over reader ``sr`` (``bench.py:203-226``)."""
+    from iresearch_tpu.search import filters as F
+
+    _term_at, high, med, low = _ranked(sr)
     tasks = [("HighTerm", F.ByTerm("body", t)) for t in high]
     tasks += [("MedTerm", F.ByTerm("body", t)) for t in med]
     tasks += [("LowTerm", F.ByTerm("body", t)) for t in low]
@@ -118,3 +127,89 @@ def task_mix(sr) -> List[Tuple[str, object]]:
         for h, m in zip(high, med)
     ]
     return tasks
+
+
+def breadth_tasks(sr) -> List[Tuple[str, object, bool]]:
+    """``bench.py``'s single-query breadth categories over reader ``sr``
+    as (name, filter, wand) (``bench.py:305-345``): Prefix is a 3-char
+    prefix over a rare band, Fuzzy1 an edit distance of 1, both with the
+    reference's ``scored_terms_limit=16``; only OrHigh4+WAND runs with
+    ``wand=True``; PrefixHot joins from 1M docs up."""
+    from iresearch_tpu.search import filters as F
+
+    term_at, high, med, low = _ranked(sr)
+
+    def T(t):
+        return F.ByTerm("body", t)
+
+    tasks = [
+        ("Phrase", F.ByPhrase("body", [term_at(30), term_at(31)]), False),
+        ("AndHighHigh", F.And(T(term_at(3)), T(term_at(5))), False),
+        ("AndHighMed", F.And(T(high[1]), T(med[1])), False),
+        ("AndHighLow", F.And(T(high[2]), T(low[2])), False),
+        ("Prefix", F.ByPrefix("body", "t01", scored_terms_limit=16), False),
+        ("Fuzzy1", F.ByEditDistance(
+            "body", term_at(50), max_distance=1, scored_terms_limit=16), False),
+        ("OrHigh4+WAND", F.Or(*[T(t) for t in high[:4]]), True),
+        ("MinMatch2High2Med", F.Or(
+            T(high[3]), T(high[4]), T(med[3]), T(med[4]), min_match=2), False),
+    ]
+    if sr.num_docs >= 1_000_000:
+        tasks.append(
+            ("PrefixHot", F.ByPrefix("body", "t00", scored_terms_limit=16), False)
+        )
+    return tasks
+
+
+def tier_tasks(sr) -> List[Tuple[str, object, Dict[str, object]]]:
+    """One query per single-segment tier that decodes postings rows, as
+    (tier, filter, planner knobs), for a ``QueryBatch`` with ``wand=True``:
+
+    * fold — a max-merged High or Low disjunction (grid span + sparse group);
+    * aux — a Low term or the Phrase category's phrase, on the host;
+    * wand — three sparse terms, grid and sort tiers turned off;
+    * direct — a lone High term kept sparse, past a lowered dslice bound;
+    * join — a Low term driving, a Med term kept sparse and probed;
+    * sort, gridmix — Low or Low, High or Low.
+
+    The knobs (``planner_knobs``) hold for that query's plan only."""
+    from iresearch_tpu.search import filters as F
+
+    term_at, high, med, low = _ranked(sr)
+
+    def T(t):
+        return F.ByTerm("body", t)
+
+    sparse = dict(USE_DENSE_TERMS=False)
+    return [
+        ("fold", F.Or(T(high[5]), T(low[5]), merge="max"), {}),
+        ("aux", F.Or(T(low[6]), F.ByPhrase("body", [term_at(30), term_at(31)])), {}),
+        ("wand", F.Or(T(med[6]), T(med[7]), T(low[7])), dict(sparse, SORT_MAX_RATIO=0.0)),
+        ("direct", T(high[8]), dict(sparse, DSLICE_PAD=8)),
+        ("sort", F.Or(T(low[0]), T(low[1])), {}),
+        ("join", F.And(T(med[2]), T(low[3])), sparse),
+        ("gridmix", F.Or(T(high[0]), T(low[0])), {}),
+    ]
+
+
+@contextlib.contextmanager
+def planner_knobs(**knobs):
+    """Set the shared planner's module knobs (``exec/plan.py:69-74``, and
+    ``DSLICE_PAD`` of ``index/segment.py``, which only the planner reads
+    after the pools are built) for the duration of the block. The plan
+    cache key holds no knob, so the cache is cleared on entry and exit."""
+    import iresearch_tpu.index.segment as segmod
+    from iresearch_tpu_torch._host import plan as planmod
+    from iresearch_tpu_torch._host import plancache
+
+    mods = {name: segmod if name == "DSLICE_PAD" else planmod for name in knobs}
+    old = {name: getattr(mods[name], name) for name in knobs}
+    plancache.clear_plan_cache()
+    try:
+        for name, value in knobs.items():
+            setattr(mods[name], name, value)
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(mods[name], name, value)
+        plancache.clear_plan_cache()
