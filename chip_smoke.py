@@ -12,7 +12,11 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
 5. holds K1, K2 and K3 against their plain PyTorch versions on the card,
    on the real pools, starts and rows of the mix's plans (BM25 bit for
    bit; TFIDF and boost scoring on a small random grid to rtol 1e-6), and
-   times each beside its plain version with CUDA events;
+   times each beside its plain version with CUDA events, beside its bound
+   (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
+   its f32 operations over 67 TFLOP/s, counted from this run's inputs)
+   and, for K2, beside one PyTorch call of the same function
+   (``index_select`` per pool, ``library_ms``; the port never calls it);
 6. runs the main path once with every launch count reset before it, and
    fails unless each kernel launched; compares all 400 results with the
    plain-torch run of the same batch (docs exact, scores rtol 1e-5) and
@@ -26,10 +30,14 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    that query's plan alone and printed). Each is run with the launch
    counts reset before it and fails unless K3 (every batch tier) or the
    category's kernels launched; each result passes the exactness gate
-   against the plain-torch run and against ``HostQuery``; K3 is held bit
-   for bit against its plain version on the rows that a fold group and a
-   join group really gather, and timed; synchronised ms per query are
-   printed for every category and tier.
+   against the plain-torch run and against ``HostQuery``; K1 is held bit
+   for bit against its plain version on every fused-scan category (four
+   spans, min_match 2 among them), and K3 on the rows that a fold group
+   and a join group really gather, and timed; synchronised ms per query
+   are printed for every category and tier.
+
+The port and this script import nothing of ``jax`` or of the JAX package
+``iresearch_tpu``; the run fails if either was loaded.
 
 It prints one JSON line of per-kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -56,6 +64,8 @@ REPLACES = {
     "dma_row_slices": "iresearch_tpu/ops/dma_gather.py:82",
     "decode_rows": "iresearch_tpu/ops/decode.py:100",
 }
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PER_CATEGORY_ORACLE = 5
 PASSES = 20  # timed batched passes
 SINGLE_REPS = 20  # timed runs per breadth category and tier (bench.py's 20)
@@ -78,6 +88,56 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def bound(nbytes, flops=0.0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the f32 operations over the f32 peak."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = flops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k1_work(torch, run):
+    """(bytes, f32 ops) that K1 needs on one call's inputs: each distinct
+    (span, start) row range, the norms, starts and weights read once and
+    the [Q, ndrows] outputs written once; the score's 5 f32 operations
+    (w * f, f + pre, max, divide, the sum) per hit lane and span with
+    f != 0, and 2 per lane for c1 * dl + c0. The hits follow the plain
+    version's rule, counted on the card in query chunks."""
+    from iresearch_tpu_torch.formats.bitpack import unpack_torch
+
+    pools, starts, ws, norms, _avgdl, kk = run
+    q, S = starts.shape
+    ndrows = norms.shape[0]
+    st = starts.cpu().numpy()
+    nbytes = norms.numel() * norms.element_size() + starts.numel() * 8 + q * ndrows * 8
+    for s, b in enumerate(kk["span_bits"]):
+        nbytes += len(np.unique(st[:, s])) * ndrows * 16 * b
+    ar = torch.arange(ndrows, device=starts.device)
+    pairs = 0
+    for a in range(0, q, 8):
+        fs = [unpack_torch(pools[s][starts[a:a + 8, s, None].long() + ar], b)
+              for s, b in enumerate(kk["span_bits"])]
+        if kk["conj"]:
+            hit = torch.stack([f > 0 for f in fs]).all(0) if kk["mm"] <= 1 else torch.zeros_like(fs[0], dtype=torch.bool)
+        elif kk["mm"] > 1:
+            hit = torch.stack([f > 0 for f in fs]).sum(0) >= kk["mm"]
+        else:
+            hit = sum(f.float() for f in fs) > 0
+        pairs += sum(int((hit & (f != 0)).sum()) for f in fs)
+    return nbytes, 5.0 * pairs + 2.0 * ndrows * 128
+
+
+def k3_work(a, bd, bf):
+    """Bytes that K3 needs for one call: each distinct doc row (words and
+    base) and freq row read once, the row ids, the docs and freqs written
+    once (integer work only, none at an f32 rate)."""
+    _dw, _fw, _base, rows_d, rows_f = a
+    n = rows_d.shape[0]
+    ud = len(np.unique(rows_d.cpu().numpy()))
+    uf = len(np.unique(rows_f.cpu().numpy()))
+    return ud * (16 * bd + 4) + uf * 16 * bf + 8 * n + n * 128 * 8
 
 
 def max_abs_err(torch, got, want):
@@ -118,15 +178,21 @@ def check_k1(torch, prep, out):
     print(f"K1 bm25 vs plain: bit-exact on {len(runs)} scan groups {shapes}")
     ms = cuda_ms(torch, lambda: [ds.dense_scan_rowmax(p, s, w, n, a, **kk) for p, s, w, n, a, kk in runs])
     plain = cuda_ms(torch, lambda: [ds.dense_scan_rowmax_ref(p, s, w, n, a, **kk) for p, s, w, n, a, kk in runs], iters=5, warmup=1)
-    out["dense_scan_rowmax"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    work = [k1_work(torch, r) for r in runs]
+    nbytes, flops = sum(w[0] for w in work), sum(w[1] for w in work)
+    bms, by = bound(nbytes, flops)
+    print(f"K1: {ms:.4f} ms for the {len(runs)} groups (plain {plain:.4f} ms); needs "
+          f"{nbytes} bytes and {flops:.0f} f32 ops -> bound {bms:.4f} ms by {by}")
+    out["dense_scan_rowmax"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                    bound_ms=bms, bound_by=by, library_ms=None)
     check_k1_scorers(torch, norms.device)
 
 
 def check_k1_scorers(torch, dev):
     """K1 vs plain with TFIDF, boost and non-default BM25 on a small random
     grid (rtol 1e-6: the kernel's rsqrtf may round differently)."""
-    from iresearch_tpu.formats.bitpack import pack_blocks
-    from iresearch_tpu.search.scorers import BM25, TFIDF, BoostScore
+    from iresearch_tpu_torch.formats.bitpack import pack_blocks
+    from iresearch_tpu_torch.search.scorers import BM25, TFIDF, BoostScore
     from iresearch_tpu_torch.ops import dense_scan as ds
 
     rng = np.random.default_rng(7)
@@ -141,7 +207,7 @@ def check_k1_scorers(torch, dev):
     ws = torch.from_numpy(rng.uniform(0.5, 3.0, size=(3, 3)).astype(np.float32)).to(dev)
     n = 0
     for scorer in (TFIDF(), TFIDF(with_norms=False), BoostScore(), BM25(k=0.9, b=0.4), BM25(b=0.0)):
-        for conj, mm in ((False, 1), (True, 1), (False, 2)):
+        for conj, mm in ((False, 1), (True, 1), (False, 2), (False, 3)):
             kk = dict(scorer=scorer, span_bits=bits, conj=conj, mm=mm)
             got = ds.dense_scan_rowmax(pools, starts, ws, norms, 37.5, **kk)
             want = ds.dense_scan_rowmax_ref(pools, starts, ws, norms, 37.5, **kk)
@@ -185,16 +251,41 @@ def check_k2_k3(torch, prep, out):
     print(f"K2 vs plain: bit-exact on {len(runs2)} dslice groups "
           f"{[(tuple(r[1].shape), r[2], [tuple(p.shape) for p in r[0]]) for r in runs2]}")
     print(f"K3 vs plain: bit-exact on {len(runs3)} groups {[(r[0][3].shape[0], r[1], r[2]) for r in runs3]}")
+    # K2's bytes: each distinct window read once, every window written once
+    k2_bytes = 0
+    lib_runs = []  # index_select's row ids, made outside the timed calls
+    for pools, starts, R in runs2:
+        st = starts.cpu().numpy()
+        ar = torch.arange(R, device=starts.device)
+        for i, pool in enumerate(pools):
+            row_bytes = R * pool.shape[1] * 4
+            k2_bytes += len(np.unique(st[:, i])) * row_bytes + st.shape[0] * row_bytes
+            lib_runs.append((pool, (starts[:, i, None].long() + ar).reshape(-1)))
+        k2_bytes += starts.numel() * 4
+    k2_lib = [p.index_select(0, i) for p, i in lib_runs]
+    k2_got = [o.reshape(-1, o.shape[-1]) for pools, starts, R in runs2
+              for o in dg.dma_row_slices(pools, starts, R)]
+    if not all(torch.equal(a, b) for a, b in zip(k2_lib, k2_got)):
+        raise AssertionError("index_select differs from K2")
     out["dma_row_slices"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(torch, lambda: [dg.dma_row_slices(*r) for r in runs2]),
         plain_ms=cuda_ms(torch, lambda: [dg.dma_row_slices_ref(*r) for r in runs2]),
+        library_ms=cuda_ms(torch, lambda: [p.index_select(0, i) for p, i in lib_runs]),
     )
+    out["dma_row_slices"].update(zip(("bound_ms", "bound_by"), bound(k2_bytes)))
     out["decode_rows"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(torch, lambda: [dc.decode_rows(*a, bd=bd, bf=bf) for a, bd, bf in runs3]),
         plain_ms=cuda_ms(torch, lambda: [dc.decode_rows_ref(*a, bd=bd, bf=bf) for a, bd, bf in runs3]),
+        library_ms=None,
     )
+    out["decode_rows"].update(zip(("bound_ms", "bound_by"),
+                                  bound(sum(k3_work(a, bd, bf) for a, bd, bf in runs3))))
+    for name in ("dma_row_slices", "decode_rows"):
+        r = out[name]
+        print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']}, bound {r['bound_ms']:.5f} by {r['bound_by']})")
 
 
 def per_query(grouped, nq):
@@ -210,7 +301,7 @@ def per_query(grouped, nq):
 def oracle_topk(flt, sr, scorer, k):
     """``HostQuery.top_k`` for one segment, ordered with numpy instead of
     a Python loop over every match."""
-    from iresearch_tpu.search.host_eval import HostQuery
+    from iresearch_tpu_torch.search.host_eval import HostQuery
 
     r = HostQuery(flt, [sr], scorer).execute(0)
     docs = np.flatnonzero(r.match)
@@ -364,12 +455,23 @@ def run_breadth(torch, sr, scorer, k, dev, smi):
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.exec.executor import DeviceQuery
     from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.ops import dense_scan as ds
 
     for name, flt, wand in bench_mix.breadth_tasks(sr):
         if name in ("Phrase", "PrefixHot"):
             continue
         dq = DeviceQuery(flt, [sr], scorer, wand=wand, device=dev)
-        tier = dq.call(0, k)[0]
+        tier, _fn, args, kw = dq.call(0, k)
+        if tier == "scan":  # K1 on this query's spans, bit for bit
+            pools, norms, starts, ws, avgdl_f, _avgdl_t = args
+            kk = dict(scorer=kw["scorer"], span_bits=kw["span_bits"],
+                      conj=kw["conj"], mm=kw["mm"])
+            got = ds.dense_scan_rowmax(pools, starts, ws, norms, avgdl_f, **kk)
+            want = ds.dense_scan_rowmax_ref(pools, starts, ws, norms, avgdl_f, **kk)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"breadth {name}: K1 differs from plain")
+            print(f"breadth {name}: K1 bit-exact vs plain on S={len(pools)} spans "
+                  f"{kk['span_bits']}, conj={kk['conj']}, mm={kk['mm']}")
         kb.reset_launch_counts()
         got = dq.execute_segment_async(0, k)
         torch.cuda.synchronize()
@@ -446,6 +548,7 @@ def run_tiers(torch, sr, scorer, k, dev, smi, kern):
     print(f"K3 gather form vs plain: bit-exact on {len(recorded)} calls of the fold and "
           f"join groups, {nrows} rows ({gathered} with rows_d != rows_f)")
     kern["decode_rows"].update(
+        gather_bound_ms=bound(sum(k3_work(a[:5], kw["bd"], kw["bf"]) for a, kw in recorded))[0],
         gather_rows=nrows,
         gather_ms=cuda_ms(torch, lambda: [dc.decode_rows(*a, **kw) for a, kw in recorded]),
         gather_plain_ms=cuda_ms(torch, lambda: [dc.decode_rows_ref(*a, **kw) for a, kw in recorded]),
@@ -469,12 +572,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    from iresearch_tpu.index.segment import SegmentReader
-    from iresearch_tpu.search.scorers import BM25
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.device import require_cuda
     from iresearch_tpu_torch.exec.batch import QueryBatch
-    from iresearch_tpu_torch.index.segment import device_state
+    from iresearch_tpu_torch.index.segment import SegmentReader, device_state
+    from iresearch_tpu_torch.search.scorers import BM25
     from iresearch_tpu_torch.kernels import build as kb
 
     t0 = time.perf_counter()
@@ -572,13 +674,13 @@ def main() -> int:
         profile_passes(torch, prep, args.profile, kind, smi)
         profile_tiers(torch, tier_prep, smi)
 
-    # the port and this script import nothing of JAX, even where it is
-    # installed (iresearch_tpu_torch/_host.py)
-    jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax"
-                      or m == "iresearch_tpu.exec.executor")
+    # the port and this script import nothing of JAX or of the JAX
+    # package, even where they are installed
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "iresearch_tpu"))
     if jax_mods:
         raise AssertionError(f"JAX modules imported: {jax_mods[:5]}")
-    print("imports: no JAX module loaded")
+    print("imports: no module of jax or iresearch_tpu loaded")
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],

@@ -1,19 +1,24 @@
 """iresearch_tpu_torch — the PyTorch + CUDA port of iresearch_tpu.
 
-The port runs the batched BM25 top-k search path (``exec.batch.QueryBatch``)
-on an NVIDIA H100. It reuses the JAX package's host layers (store, formats,
-analysis, index writer/reader, ``search/*``, the planner) by import and
-replaces everything that touched a device: segment residency, the three
-executor tiers of the batch path (skyline, dslice, fused scan) and their
-three Pallas kernels, which are hand-written CUDA C++ here
-(``kernels/csrc/irs_kernels.cu``).
+The port runs the search engine's query path on an NVIDIA H100: the
+batched BM25 top-k path (``exec.batch.QueryBatch``) and the single-query
+executor (``exec.executor.DeviceQuery``, ``search_device``). It carries
+its own copy of every host layer it needs (``formats``, ``index`` reader,
+``search`` filters/expansion/oracle/scorers, the ``exec`` planner and
+plan cache, the ``native`` loader of the shared C++ library in
+``native/``), each under the JAX package module's path and name, and
+replaces everything that touched a device: segment residency, the
+executor tiers and the three Pallas kernels, which are hand-written CUDA
+C++ here (``kernels/csrc/irs_kernels.cu``).
 
 Conventions:
 
-* the caller passes the ``torch.device``; nothing picks one quietly;
+* entry points run on the card unless the caller names a ``device``;
 * every kernel wrapper runs its plain PyTorch version for CPU tensors and
   launches the CUDA kernel (or raises) for CUDA tensors;
-* this package never imports ``jax``.
+* this package imports neither ``jax`` nor ``iresearch_tpu``; a segment
+  file written by either package opens in the other
+  (``index.segment.carry_segment``).
 """
 
 __version__ = "0.1.0"

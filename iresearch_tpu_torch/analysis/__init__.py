@@ -1,0 +1,1 @@
+"""Host layers copied from ``iresearch_tpu/analysis``."""

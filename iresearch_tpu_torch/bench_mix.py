@@ -47,10 +47,10 @@ def build_corpus(num_docs: int, seed: int = SEED):
 
 def build_segment_data(num_docs: int, seed: int = SEED):
     """One "body" field segment over the corpus (``bench.py:138-163``)."""
-    from iresearch_tpu.formats.postings import encode_field_postings
-    from iresearch_tpu.formats.spec import IndexFeatures
-    from iresearch_tpu.index.invert import invert_numpy
-    from iresearch_tpu.index.segment import SegmentData
+    from iresearch_tpu_torch.formats.postings import encode_field_postings
+    from iresearch_tpu_torch.formats.spec import IndexFeatures
+    from iresearch_tpu_torch.index.invert import invert_numpy
+    from iresearch_tpu_torch.index.segment import SegmentData
 
     lens, tids = build_corpus(num_docs, seed)
     doc_of_tok = np.repeat(np.arange(num_docs), lens)
@@ -75,7 +75,7 @@ def build_segment_data(num_docs: int, seed: int = SEED):
 def load_or_build(num_docs: int, cache_dir: Optional[str]):
     """(SegmentData, loaded_from_cache): the segment from ``cache_dir``
     under ``bench.py``'s file name, else built (and written there)."""
-    from iresearch_tpu.formats.segment_io import read_segment, write_segment
+    from iresearch_tpu_torch.formats.segment_io import read_segment, write_segment
 
     path = None
     if cache_dir is not None:
@@ -112,7 +112,7 @@ def _ranked(sr):
 
 def task_mix(sr) -> List[Tuple[str, object]]:
     """The 400-query batched mix over reader ``sr`` (``bench.py:203-226``)."""
-    from iresearch_tpu.search import filters as F
+    from iresearch_tpu_torch.search import filters as F
 
     _term_at, high, med, low = _ranked(sr)
     tasks = [("HighTerm", F.ByTerm("body", t)) for t in high]
@@ -135,7 +135,7 @@ def breadth_tasks(sr) -> List[Tuple[str, object, bool]]:
     prefix over a rare band, Fuzzy1 an edit distance of 1, both with the
     reference's ``scored_terms_limit=16``; only OrHigh4+WAND runs with
     ``wand=True``; PrefixHot joins from 1M docs up."""
-    from iresearch_tpu.search import filters as F
+    from iresearch_tpu_torch.search import filters as F
 
     term_at, high, med, low = _ranked(sr)
 
@@ -173,7 +173,7 @@ def tier_tasks(sr) -> List[Tuple[str, object, Dict[str, object]]]:
     * sort, gridmix — Low or Low, High or Low.
 
     The knobs (``planner_knobs``) hold for that query's plan only."""
-    from iresearch_tpu.search import filters as F
+    from iresearch_tpu_torch.search import filters as F
 
     term_at, high, med, low = _ranked(sr)
 
@@ -194,13 +194,14 @@ def tier_tasks(sr) -> List[Tuple[str, object, Dict[str, object]]]:
 
 @contextlib.contextmanager
 def planner_knobs(**knobs):
-    """Set the shared planner's module knobs (``exec/plan.py:69-74``, and
+    """Set the port's planner knobs (``exec/plan.py:69-74``, and
     ``DSLICE_PAD`` of ``index/segment.py``, which only the planner reads
     after the pools are built) for the duration of the block. The plan
-    cache key holds no knob, so the cache is cleared on entry and exit."""
-    import iresearch_tpu.index.segment as segmod
-    from iresearch_tpu_torch._host import plan as planmod
-    from iresearch_tpu_torch._host import plancache
+    cache key holds no knob, so the cache is cleared on entry and exit.
+    The JAX package's knobs are its own: this touches none of them."""
+    import iresearch_tpu_torch.index.segment as segmod
+    from iresearch_tpu_torch.exec import plan as planmod
+    from iresearch_tpu_torch.exec import plancache
 
     mods = {name: segmod if name == "DSLICE_PAD" else planmod for name in knobs}
     old = {name: getattr(mods[name], name) for name in knobs}

@@ -1,8 +1,9 @@
-"""Device handling: the caller names the device, nothing picks one.
+"""Device handling: the card unless the caller names another device.
 
-Every public entry point of the port takes an explicit ``torch.device``.
-``require_cuda`` is for the programs that must run on the card (the chip
-smoke, kernel timing): it raises instead of continuing on the CPU.
+The entry points (``DeviceQuery``, ``search_device``, ``QueryBatch``)
+take a ``device``; without one they take ``require_cuda()``, which raises
+where there is no card instead of continuing on the CPU. The tests pass
+``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -1,1 +1,1 @@
-"""Batched query execution on torch tensors (``batch.QueryBatch``)."""
+"""Query execution on torch tensors, and the planner and plan cache copied from ``iresearch_tpu/exec``."""

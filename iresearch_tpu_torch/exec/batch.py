@@ -32,11 +32,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from iresearch_tpu.formats.bitpack import BITS
-from iresearch_tpu.formats.spec import BLOCK
-from iresearch_tpu.index.segment import _pow2
-from iresearch_tpu.search import filters as F
-from iresearch_tpu.search.scorers import BM25, Scorer
 from iresearch_tpu_torch.exec.candidates import candidate_body, dslice_topk
 from iresearch_tpu_torch.exec.executor import (  # noqa: F401 (re-exported)
     _NEG_INF,
@@ -45,15 +40,19 @@ from iresearch_tpu_torch.exec.executor import (  # noqa: F401 (re-exported)
     DeviceQuery,
     Kernels,
     densify_aux,
+    entry_device,
     scan_shape,
     segment_body,
     wand_body,
 )
 from iresearch_tpu_torch.exec.skyline import skyline_spec, skyline_topk_batch
-from iresearch_tpu_torch.index.segment import device_state
+from iresearch_tpu_torch.formats.bitpack import BITS
+from iresearch_tpu_torch.formats.spec import BLOCK
+from iresearch_tpu_torch.index.segment import _pow2, device_state
 from iresearch_tpu_torch.ops.dense_scan import score_rows
 from iresearch_tpu_torch.ops.topk import _IMAX32, topk_docs
-from iresearch_tpu_torch.search.scorers import f32
+from iresearch_tpu_torch.search import filters as F
+from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32
 
 # live lanes per batched call: a group materializes Q x width lanes of
 # intermediates, so a runner takes at most budget // width queries at a
@@ -479,8 +478,9 @@ class QueryBatch:
 
     Queries are grouped by plan signature; each group becomes one stacked
     call. Results are exact per-query top-k, equal to the JAX package's
-    ``QueryBatch`` on the same segment. ``device`` is required: nothing
-    picks one. Phrases are host aux leaves (``device_phrase=False``)."""
+    ``QueryBatch`` on the same segment. ``device`` defaults to the card
+    (raises without one). Phrases are host aux leaves
+    (``device_phrase=False``)."""
 
     def __init__(
         self,
@@ -491,7 +491,7 @@ class QueryBatch:
         wand_sample: int = 16,
         wand_mode: str = "exact",
         *,
-        device,
+        device=None,
     ) -> None:
         if wand_mode not in ("exact", "strict", "approx"):
             raise ValueError(
@@ -501,7 +501,7 @@ class QueryBatch:
         self.segments = list(segments)
         self.wand_sample = wand_sample
         self.wand_mode = wand_mode
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self.queries = [
             DeviceQuery(
                 f, self.segments, self.scorer, wand=wand, wand_mode=wand_mode,

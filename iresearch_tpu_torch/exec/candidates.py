@@ -24,9 +24,6 @@ from __future__ import annotations
 
 import torch
 
-from iresearch_tpu.formats.bitpack import words_per_block
-from iresearch_tpu.formats.spec import BLOCK
-from iresearch_tpu.search.scorers import Scorer
 from iresearch_tpu_torch.exec.executor import (
     _NEG_INF,
     dense_contrib,
@@ -38,10 +35,15 @@ from iresearch_tpu_torch.exec.executor import (
     shave_theta,
     sort_by_ub,
 )
-from iresearch_tpu_torch.formats.bitpack import lane_mask, unpack_torch
+from iresearch_tpu_torch.formats.bitpack import (
+    lane_mask,
+    unpack_torch,
+    words_per_block,
+)
+from iresearch_tpu_torch.formats.spec import BLOCK
 from iresearch_tpu_torch.ops.decode import decode_rows
 from iresearch_tpu_torch.ops.topk import _IMAX32, topk_docs
-from iresearch_tpu_torch.search.scorers import score_block_torch
+from iresearch_tpu_torch.search.scorers import Scorer, score_block_torch
 
 
 def dslice_core(

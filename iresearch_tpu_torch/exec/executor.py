@@ -14,11 +14,15 @@ as they do in the JAX package:
   the fold and the alive mask;
 * ``wand_body`` — block-max WAND in its exact, strict and approx modes.
 
-``DeviceQuery`` prepares through the JAX package's jax-free ``HostQuery``,
-``PlanCompiler`` and plan cache, so sampled terms, idf stats and tier
-choice are the reference's by construction. Plans are shared with the JAX
-package through that cache: the port never mutates one and keeps what it
-stores in ``plan.cache`` under its own keys.
+``DeviceQuery`` prepares through the port's copies of ``HostQuery``,
+``PlanCompiler`` and the plan cache (``search/host_eval.py``,
+``exec/plan.py``, ``exec/plancache.py``), so sampled terms, idf stats and
+tier choice are the reference's; the tests hold each copy against its
+original. Plans are shared between queries through the cache, so a caller
+never mutates one; uploads are kept in ``plan.cache``.
+
+The entry points take the port's own readers, filters and scorers, and
+run on the card unless the caller names another ``device``.
 
 Scatter-adds go through ``index_add_``, which on CUDA sums in no fixed
 order, as XLA's scatter does on the TPU: fold scores may differ from run
@@ -34,13 +38,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from iresearch_tpu.formats.spec import BLOCK
-from iresearch_tpu.search import filters as F
-from iresearch_tpu.search.host_eval import HostQuery
-from iresearch_tpu.search.scorers import BM25, Scorer
-from iresearch_tpu_torch._host import plan as _plan
-from iresearch_tpu_torch._host import plancache as _plancache
+from iresearch_tpu_torch.device import require_cuda
+from iresearch_tpu_torch.exec import plan as _plan
+from iresearch_tpu_torch.exec import plancache as _plancache
 from iresearch_tpu_torch.formats.bitpack import unpack_torch
+from iresearch_tpu_torch.formats.spec import BLOCK
+from iresearch_tpu_torch.index.segment import SegmentReader
 from iresearch_tpu_torch.ops.decode import decode_rows, decode_rows_ref
 from iresearch_tpu_torch.ops.dense_scan import (
     dense_scan_rowmax,
@@ -48,7 +51,9 @@ from iresearch_tpu_torch.ops.dense_scan import (
 )
 from iresearch_tpu_torch.ops.dma_gather import dma_row_slices, dma_row_slices_ref
 from iresearch_tpu_torch.ops.topk import topk_docs
-from iresearch_tpu_torch.search.scorers import f32, score_block_torch
+from iresearch_tpu_torch.search import filters as F
+from iresearch_tpu_torch.search.host_eval import HostQuery
+from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32, score_block_torch
 
 _NEG_INF = float("-inf")
 
@@ -63,9 +68,8 @@ PLAIN = Kernels(dense_scan_rowmax_ref, dma_row_slices_ref, decode_rows_ref)
 def scan_shape(plan):
     """Fused-scan eligibility of a plan: None, "or" (any-hit, spans sum
     into one leaf), "and" (all-hit, one span per leaf), or int mm >= 2
-    (a min_match disjunction, one span per leaf). A copy of
-    ``exec/executor.py:scan_shape``, which cannot be imported without jax.
-    """
+    (a min_match disjunction, one span per leaf)
+    (``exec/executor.py:scan_shape``)."""
     if (
         plan.exec_mode != "dense"
         or plan.groups
@@ -417,9 +421,29 @@ def _has_phrase(flt) -> bool:
     return False
 
 
+def entry_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; the card when it is None (raises
+    without one)."""
+    return require_cuda() if device is None else torch.device(device)
+
+
+def check_port_objects(segments, scorer) -> None:
+    """Raise unless the readers and scorer are the port's own classes: the
+    planner and kernels branch on ``isinstance`` of them."""
+    for sr in segments:
+        if not isinstance(sr, SegmentReader):
+            raise TypeError(
+                f"segment {type(sr).__module__}.{type(sr).__name__} is not "
+                "an iresearch_tpu_torch SegmentReader (carry_segment opens "
+                "a segment file of either package)"
+            )
+    if not isinstance(scorer, Scorer):
+        raise TypeError(f"scorer {scorer!r} is not an iresearch_tpu_torch Scorer")
+
+
 class DeviceQuery:
-    """A prepared query executing on ``device``, exact vs the host oracle
-    (``exec/executor.py:DeviceQuery``, plus the required ``device``).
+    """A prepared query executing on ``device`` (the card when None),
+    exact vs the host oracle (``exec/executor.py:DeviceQuery``).
 
     ``device_phrase=True`` (the JAX default) evaluates phrases on the
     device, which is not ported yet: a query with a phrase leaf then
@@ -436,19 +460,22 @@ class DeviceQuery:
         wand_mode: str = "exact",
         device_phrase: bool = True,
         *,
-        device,
+        device=None,
     ) -> None:
         if wand_mode not in ("exact", "strict", "approx"):
             raise ValueError(
                 f"wand_mode must be exact|strict|approx, got {wand_mode!r}"
             )
+        if not isinstance(flt, F.Filter):
+            raise TypeError(f"filter {flt!r} is not an iresearch_tpu_torch Filter")
         self.flt = flt
         self.scorer = scorer or BM25()
+        check_port_objects(segments, self.scorer)
         self.wand = wand
         self.wand_sample = wand_sample
         self.wand_mode = wand_mode
         self.device_phrase = device_phrase
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self.prepared = HostQuery(flt, list(segments), self.scorer)
         self.compiler = _plan.PlanCompiler(self.prepared, self.scorer)
         self._plans: Dict[int, _plan.SegmentPlan] = {}
@@ -549,8 +576,8 @@ class DeviceQuery:
 
 def search_device(
     reader, flt: F.Filter, scorer: Optional[Scorer] = None, k: int = 10,
-    *, device,
+    *, device=None,
 ) -> List[Tuple[int, float]]:
-    """Top-k (global_doc, score) of ``flt`` over ``reader`` on ``device``
-    (``exec/executor.py:search_device``)."""
+    """Top-k (global_doc, score) of ``flt`` over ``reader``'s segments on
+    ``device``, the card when None (``exec/executor.py:search_device``)."""
     return DeviceQuery(flt, list(reader.segments), scorer, device=device).top_k(k)

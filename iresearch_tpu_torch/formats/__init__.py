@@ -1,1 +1,1 @@
-"""Torch counterparts of ``iresearch_tpu.formats`` device code."""
+"""The port's segment formats: copies of ``iresearch_tpu/formats`` plus the torch unpack."""

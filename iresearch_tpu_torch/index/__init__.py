@@ -1,1 +1,1 @@
-"""Torch counterparts of ``iresearch_tpu.index`` device residency."""
+"""The port's segment reader (a copy of the JAX package's) and its residency on a torch device."""

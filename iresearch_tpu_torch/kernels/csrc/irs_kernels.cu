@@ -37,25 +37,6 @@ __device__ __forceinline__ uint32_t lane_bits(const uint32_t* row, int b,
   return (row[j % wpb] >> ((j / wpb) * b)) & mask;
 }
 
-// ops/dense_scan.py:_score_expr, operation for operation.
-__device__ __forceinline__ float score_expr(int kind, float w, float f,
-                                            float dl, float c1, float c0) {
-  switch (kind) {
-    case kBM25: {
-      const float denom = f + (c1 * dl + c0);
-      return w * f / fmaxf(denom, 1e-9f);
-    }
-    case kBM25NoLen:
-      return w * f / fmaxf(f + c0, 1e-9f);
-    case kTFIDF:
-      return w * sqrtf(f) * rsqrtf(fmaxf(dl, 1.0f));
-    case kTFIDFNoNorm:
-      return w * sqrtf(f);
-    default:
-      return f > 0.0f ? w : 0.0f;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K1: fused dense-grid row max.
 //
@@ -66,82 +47,290 @@ __device__ __forceinline__ float score_expr(int kind, float w, float f,
 // span / all spans with conj / at least mm spans), and reduce to the row
 // max (-inf without a hit) and its smallest lane.
 //
-// Bound: device memory. Each (q, r) reads S rows of 16*b bytes plus 256
-// bytes of u16 norms and writes 8 bytes; the arithmetic is ~10 flops per
-// lane. One warp per (q, row), four lanes per thread (j = lane + 32 i), so
-// a warp's word loads are contiguous and the norms row is read in four
-// coalesced 64-byte pieces; the row max and its first lane come from warp
-// shuffles, with nothing in shared memory. The starts are per query, so
-// no [Q, ndrows] slice of any pool is ever materialised.
+// Bound: device memory. The pass must read Q * ndrows * sum_s 16 b_s
+// bytes of pool words (the mix's two groups: 78 queries x 40,960 rows x
+// 96 B = 307 MB), the norms once per call (10.5 MB) and write 8 bytes per
+// (q, row): ~0.105 ms at 3.35 TB/s (chip_smoke.py's bound_ms). The f32
+// work a result needs is small: 5 operations per (hit lane, span with
+// f != 0), ~0.004 ms at 67 TFLOP/s. The tensor cores do not apply (no
+// matrix product).
+//
+// A warp per (q, row) that scored every lane (the first design) was bound
+// by instruction issue at ~80 GB/s: ~70 instructions per lane and span
+// (run-time / and % by 4b, an IEEE divide on every lane, the norms row
+// and c1 * dl + c0 per query). This design cuts the instructions:
+//
+// * A block owns K1_WARPS grid rows (one warp each) and a chunk of up to
+//   K1_QCHUNK queries, whose starts and weights it stages in shared
+//   memory. A warp loads its norms row once and keeps the span- and
+//   query-independent part of the score (c1 * dl + c0, or 1/sqrt(dl)) in
+//   shared memory for every span and query of the chunk: the same
+//   expression in the same order as the plain version.
+// * Pass 1 finds the hit lanes without scoring. b is a power of two, so
+//   lane j lives in word j & (4b - 1) at bit (j >> (lb + 2)) << lb; for
+//   b <= 8 the four lanes j = lane + 32 i of a thread share one word, at
+//   bits s0 + 8 i, so one load, one shift and one mask give all four
+//   lanes, one per byte, and the hit logic runs on the bytes (SIMD byte
+//   compares). The K1_QB queries in flight issue their loads with no
+//   branch between them (a row outside its pool reads k1_zero_row).
+// * Pass 2 compacts the hit lanes in lane order through warp ballots, so
+//   that one round of divides serves 32 of them, and scores only spans
+//   with f != 0: for every score kind a span with f == 0 adds exactly
+//   +-0 to a sum that starts at +0, and a lane without a hit ends at -inf
+//   whatever its score, so the result is bit-identical with the plain
+//   version (summation order over spans unchanged, IEEE divide,
+//   --fmad=false). The query's row of every span is looked up once into
+//   shared memory; the words are read again, from L1.
+// * The row max and its smallest lane come from warp shuffles.
+//
+// What bounds it now (NVIDIA H100, chip_smoke.py and PERF.md): still
+// instruction issue, ~14x its bytes bound on the mix. Scoring the hit
+// lanes (pass 2) takes most of the time on the OrHighMed group, where
+// most lanes hit, pass 1 with the compaction the rest. Variants that were
+// slower: 4 or 8 queries in flight (more registers, fewer warps), scoring
+// each thread's own lanes on dense rows, adding every span's term
+// branch-free, and an approximate pass (__fdividef) leaving only the lanes
+// near the row max to the exact divide: per hit lane the cost is the
+// word's address, load and extraction more than the divide. Registers (nvcc -Xptxas -v, sm_90a): 40 in the any/count/all
+// modes, 40 in the f32-sum mode, no spills; 17,408 B of shared memory.
+//
+// Pool words are loaded straight into registers: a (query, span) row is
+// 32-64 B at a per-query offset, too small for a bulk copy (cp.async or
+// TMA) to pay, and the loads are not what bounds the kernel.
+#define K1_WARPS 8    // grid rows per block, one warp each
+#define K1_QCHUNK 16  // queries per block
+#define K1_QB 2       // queries in flight per warp in pass 1
+
+enum HitMode {
+  kHitAny = 0,    // f summed over spans > 0, no span of 32 bits: any f > 0
+  kHitAll = 1,    // conj: min over spans of f > 0
+  kHitCount = 2,  // mm > 1: count of spans with f > 0 >= mm
+  kHitFSum = 3,   // the f sum > 0 in f32, when a 32-bit span can be < 0
+};
+
+// what a row outside its pool reads: the zero sentinel (never for a plan;
+// the guard keeps a bad start from reading foreign memory)
+__device__ const uint32_t k1_zero_row[IRS_BLOCK] = {};
+
 struct SpanPools {
   const uint32_t* pool[IRS_MAX_SPANS];
   long long rows[IRS_MAX_SPANS];
   int bits[IRS_MAX_SPANS];
+  int lbits[IRS_MAX_SPANS];  // log2(bits)
 };
 
-__global__ void __launch_bounds__(256)
-k1_dense_scan_rowmax(SpanPools sp, int S, const int32_t* __restrict__ starts,
-                     const float* __restrict__ ws, const void* __restrict__ norms,
-                     int norms_u16, int ndrows, int kind, float kb, float c0,
-                     float avgdl, int conj, int mm,
-                     float* __restrict__ out_max, int32_t* __restrict__ out_arg) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int q = blockIdx.y;
-  if (row >= ndrows) return;
-  const float c1 = kb / avgdl;
+__device__ __forceinline__ uint32_t width_mask(int b) {
+  return b == 32 ? IRS_FULL_MASK : ((1u << b) - 1u);
+}
 
-  float dl[4], score[4], fagg[4];
+// lane j of a b-bit row, b = 1 << lb: shifts and masks only
+__device__ __forceinline__ uint32_t lane_val(const uint32_t* row, int b,
+                                             int lb, int j) {
+  return (__ldg(row + (j & ((4 << lb) - 1))) >> ((j >> (lb + 2)) << lb)) &
+         width_mask(b);
+}
+
+// Byte i is non-zero iff lane lane + 32 i has f > 0 (f = f32(int32(v))).
+__device__ __forceinline__ uint32_t span_hits(const uint32_t* row, int b,
+                                              int lb, int lane) {
+  if (b <= 8) {
+    const uint32_t w = __ldg(row + (lane & ((4 << lb) - 1)));
+    return (w >> ((lane >> (lb + 2)) << lb)) & (width_mask(b) * 0x01010101u);
+  }
+  if (b == 16) {  // lanes i = 0, 2 in word lane, i = 1, 3 in word lane + 32
+    const uint32_t a = __ldg(row + lane), c = __ldg(row + lane + 32);
+    return ((a & 0xffffu) ? 0x1u : 0u) | ((c & 0xffffu) ? 0x100u : 0u) |
+           ((a >> 16) ? 0x10000u : 0u) | ((c >> 16) ? 0x1000000u : 0u);
+  }
+  uint32_t x = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x |= ((int32_t)__ldg(row + lane + 32 * i) > 0 ? 1u : 0u) << (8 * i);
+  return x;
+}
+
+// score_expr with the lane's span-independent part precomputed in `pre`
+// (kBM25: c1 * dl + c0; kTFIDF: rsqrt(max(dl, 1))).
+__device__ __forceinline__ float score_lane(int kind, float w, float f,
+                                            float pre, float c0) {
+  switch (kind) {
+    case kBM25:
+      return w * f / fmaxf(f + pre, 1e-9f);
+    case kBM25NoLen:
+      return w * f / fmaxf(f + c0, 1e-9f);
+    case kTFIDF:
+      return w * sqrtf(f) * pre;
+    case kTFIDFNoNorm:
+      return w * sqrtf(f);
+    default:
+      return f > 0.0f ? w : 0.0f;
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(K1_WARPS * 32)
+k1_dense_scan_rowmax(SpanPools sp, int S, const int32_t* __restrict__ starts,
+                     const float* __restrict__ ws,
+                     const void* __restrict__ norms, int norms_u16,
+                     int ndrows, int Q, int kind, float kb, float c0,
+                     float avgdl, int mm,
+                     float* __restrict__ out_max,
+                     int32_t* __restrict__ out_arg) {
+  __shared__ int32_t s_start[K1_QCHUNK * IRS_MAX_SPANS];
+  __shared__ float s_w[K1_QCHUNK * IRS_MAX_SPANS];
+  __shared__ float s_pre[K1_WARPS][IRS_BLOCK];
+  __shared__ uint8_t s_hit[K1_WARPS][IRS_BLOCK];
+  __shared__ const uint32_t* s_row[K1_WARPS][IRS_MAX_SPANS];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.y * K1_QCHUNK;
+  const int nq = min(K1_QCHUNK, Q - q0);
+  for (int t = threadIdx.x; t < nq * S; t += blockDim.x) {
+    s_start[t] = starts[(long long)q0 * S + t];
+    s_w[t] = ws[(long long)q0 * S + t];
+  }
+  __syncthreads();
+  const int row = blockIdx.x * K1_WARPS + warp;
+  if (row >= ndrows) return;
+
+  float* pre = s_pre[warp];
+  uint8_t* hits = s_hit[warp];
+  const uint32_t** rows = s_row[warp];
+  const float c1 = kb / avgdl;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long idx = (long long)row * IRS_BLOCK + lane + 32 * i;
-    dl[i] = norms_u16
-                ? (float)(int)((const uint16_t*)norms)[idx]
-                : ((const float*)norms)[idx];
-    score[i] = 0.0f;
-    fagg[i] = 0.0f;
+    const float dl = norms_u16 ? (float)(int)((const uint16_t*)norms)[idx]
+                               : ((const float*)norms)[idx];
+    pre[lane + 32 * i] = kind == kBM25    ? c1 * dl + c0
+                         : kind == kTFIDF ? rsqrtf(fmaxf(dl, 1.0f))
+                                          : 0.0f;
   }
-  for (int s = 0; s < S; ++s) {
-    const int b = sp.bits[s];
-    const long long r = (long long)starts[q * S + s] + row;
-    // rows outside the pool read as the zero sentinel (never for a plan;
-    // the guard keeps a bad start from reading foreign memory)
-    const bool ok = r >= 0 && r < sp.rows[s];
-    const uint32_t* wrow = sp.pool[s] + (ok ? r : 0) * (4 * b);
-    const float w = ws[q * S + s];
+  __syncwarp();  // pass 2 reads other threads' lanes of `pre`
+  const uint32_t thr = (uint32_t)min(max(mm, 0), 255) * 0x01010101u;
+
+  for (int qa = 0; qa < nq; qa += K1_QB) {
+    // ---- pass 1: hit bits of K1_QB queries (a short tail repeats the
+    // last query, whose extra results are dropped)
+    uint32_t acc[K1_QB];
+    float fs[K1_QB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t v = ok ? lane_bits(wrow, b, lane + 32 * i) : 0u;
-      const float f = (float)(int32_t)v;
-      score[i] = score[i] + score_expr(kind, w, f, dl[i], c1, c0);
-      const float h = mm > 1 ? (f > 0.0f ? 1.0f : 0.0f) : f;
-      fagg[i] = s == 0 ? h : (conj ? fminf(fagg[i], h) : fagg[i] + h);
-    }
-  }
-  float best = -INFINITY;
-  int arg = lane;
+    for (int u = 0; u < K1_QB; ++u) {
+      acc[u] = MODE == kHitAll ? IRS_FULL_MASK : 0u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool hit = mm > 1 ? fagg[i] >= (float)mm : fagg[i] > 0.0f;
-    const float v = hit ? score[i] : -INFINITY;
-    if (i == 0 || v > best) {  // ascending lanes: first max wins
-      best = v;
-      arg = lane + 32 * i;
+      for (int i = 0; i < 4; ++i) fs[u][i] = 0.0f;
     }
-  }
+    for (int s = 0; s < S; ++s) {
+      const int b = sp.bits[s], lb = sp.lbits[s];
+      const uint32_t* pool = sp.pool[s];
+      const long long nrows = sp.rows[s];
+      const int wpb = 4 << lb;
+      const uint32_t* wrow[K1_QB];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(IRS_FULL_MASK, best, off);
-    const int oa = __shfl_down_sync(IRS_FULL_MASK, arg, off);
-    if (ov > best || (ov == best && oa < arg)) {
-      best = ov;
-      arg = oa;
+      for (int u = 0; u < K1_QB; ++u) {
+        const long long r = (long long)s_start[min(qa + u, nq - 1) * S + s] + row;
+        wrow[u] = r >= 0 && r < nrows ? pool + r * wpb : k1_zero_row;
+      }
+      if (MODE == kHitFSum) {
+#pragma unroll
+        for (int u = 0; u < K1_QB; ++u)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float f = (float)(int32_t)lane_val(wrow[u], b, lb, lane + 32 * i);
+            fs[u][i] = s == 0 ? f : fs[u][i] + f;
+          }
+        continue;
+      }
+      uint32_t x[K1_QB];
+      if (b <= 8) {
+        // every load first, with no branch between them, then the bytes
+        const int wi = lane & (wpb - 1);
+#pragma unroll
+        for (int u = 0; u < K1_QB; ++u) x[u] = __ldg(wrow[u] + wi);
+        const int s0 = (lane >> (lb + 2)) << lb;
+        const uint32_t rep = width_mask(b) * 0x01010101u;
+#pragma unroll
+        for (int u = 0; u < K1_QB; ++u) x[u] = (x[u] >> s0) & rep;
+      } else {
+#pragma unroll
+        for (int u = 0; u < K1_QB; ++u) x[u] = span_hits(wrow[u], b, lb, lane);
+      }
+#pragma unroll
+      for (int u = 0; u < K1_QB; ++u) {
+        if (MODE == kHitAny) acc[u] |= x[u];
+        if (MODE == kHitAll) acc[u] &= __vcmpne4(x[u], 0u);
+        if (MODE == kHitCount) acc[u] += __vcmpne4(x[u], 0u) & 0x01010101u;
+      }
     }
-  }
-  if (lane == 0) {
-    const long long o = (long long)q * ndrows + row;
-    out_max[o] = best;
-    out_arg[o] = arg;
+
+    // ---- pass 2, one query at a time: score the hit lanes only
+#pragma unroll
+    for (int u = 0; u < K1_QB; ++u) {
+      if (qa + u >= nq) break;
+      const int qi = qa + u;
+      uint32_t hb = 0u;  // bit i: lane lane + 32 i hits
+      if (MODE == kHitFSum) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hb |= (fs[u][i] > 0.0f ? 1u : 0u) << i;
+      } else {
+        const uint32_t h = MODE == kHitAny    ? __vcmpne4(acc[u], 0u)
+                           : MODE == kHitAll  ? acc[u]
+                                              : __vcmpgeu4(acc[u], thr);
+        hb = ((h >> 7) & 1u) | ((h >> 14) & 2u) | ((h >> 21) & 4u) |
+             ((h >> 28) & 8u);
+      }
+      // compact the hit lanes, in ascending lane order
+      int H = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned bal = __ballot_sync(IRS_FULL_MASK, (hb >> i) & 1u);
+        if ((hb >> i) & 1u)
+          hits[H + __popc(bal & ((1u << lane) - 1u))] = (uint8_t)(lane + 32 * i);
+        H += __popc(bal);
+      }
+      float best = -INFINITY;
+      int arg = H > 0 ? IRS_BLOCK : 0;
+      if (H > 0) {
+        // this query's row of every span, once per (query, row)
+        for (int t = lane; t < S; t += 32) {
+          const long long r = (long long)s_start[qi * S + t] + row;
+          rows[t] = r >= 0 && r < sp.rows[t] ? sp.pool[t] + r * (4 << sp.lbits[t])
+                                             : k1_zero_row;
+        }
+        __syncwarp();
+        for (int k = lane; k < H; k += 32) {
+          const int j = hits[k];
+          const float pj = pre[j];
+          float score = 0.0f;
+          for (int t = 0; t < S; ++t) {
+            const uint32_t v = lane_val(rows[t], sp.bits[t], sp.lbits[t], j);
+            if (v != 0u)
+              score = score + score_lane(kind, s_w[qi * S + t],
+                                         (float)(int32_t)v, pj, c0);
+          }
+          if (score > best) {  // k ascends: the first max lane is kept
+            best = score;
+            arg = j;
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const float ov = __shfl_down_sync(IRS_FULL_MASK, best, off);
+          const int oa = __shfl_down_sync(IRS_FULL_MASK, arg, off);
+          if (ov > best || (ov == best && oa < arg)) {
+            best = ov;
+            arg = oa;
+          }
+        }
+        __syncwarp();  // the hit list is rewritten for the next query
+      }
+      if (lane == 0) {
+        const long long o = (long long)(q0 + qi) * ndrows + row;
+        out_max[o] = best;
+        out_arg[o] = arg;
+      }
+    }
   }
 }
 
@@ -255,20 +444,43 @@ int irs_dense_scan_rowmax(const void* const* pools, const long long* rows,
                           int ndrows, int Q, int kind, float kb, float c0,
                           float avgdl, int conj, int mm, void* out_max,
                           void* out_arg, void* stream) {
-  if (S < 1 || S > IRS_MAX_SPANS || Q < 1 || Q > 65535 || ndrows < 1)
+  const int chunks = (Q + K1_QCHUNK - 1) / K1_QCHUNK;
+  if (S < 1 || S > IRS_MAX_SPANS || Q < 1 || chunks > 65535 || ndrows < 1)
     return (int)cudaErrorInvalidValue;
   SpanPools sp = {};
+  bool wide = false;  // a 32-bit span: f can be negative
   for (int s = 0; s < S; ++s) {
+    int lb = 0;
+    while (lb < 5 && (1 << lb) != bits[s]) ++lb;
+    if ((1 << lb) != bits[s]) return (int)cudaErrorInvalidValue;
     sp.pool[s] = (const uint32_t*)pools[s];
     sp.rows[s] = rows[s];
     sp.bits[s] = bits[s];
+    sp.lbits[s] = lb;
+    wide = wide || bits[s] == 32;
   }
-  const int rows_per_block = 256 / 32;
-  dim3 grid((ndrows + rows_per_block - 1) / rows_per_block, Q);
-  k1_dense_scan_rowmax<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      sp, S, (const int32_t*)starts, (const float*)ws, norms, norms_u16,
-      ndrows, kind, kb, c0, avgdl, conj, mm, (float*)out_max,
-      (int32_t*)out_arg);
+  // the plain version's hit rule: conj takes the min over spans of f (of
+  // 0/1 hit indicators when mm > 1, which then never reach mm), otherwise
+  // the sum of f, or of the indicators when mm > 1
+  int mode = conj ? kHitAll : mm > 1 ? kHitCount : wide ? kHitFSum : kHitAny;
+  if (conj && mm > 1) {
+    mode = kHitCount;
+    mm = 255;  // above any count of <= 64 spans: no lane hits
+  }
+  dim3 grid((ndrows + K1_WARPS - 1) / K1_WARPS, chunks);
+  cudaStream_t st = (cudaStream_t)stream;
+#define K1_LAUNCH(M)                                                       \
+  k1_dense_scan_rowmax<M><<<grid, K1_WARPS * 32, 0, st>>>(                 \
+      sp, S, (const int32_t*)starts, (const float*)ws, norms, norms_u16,  \
+      ndrows, Q, kind, kb, c0, avgdl, mm, (float*)out_max,                \
+      (int32_t*)out_arg)
+  switch (mode) {
+    case kHitAny: K1_LAUNCH(kHitAny); break;
+    case kHitAll: K1_LAUNCH(kHitAll); break;
+    case kHitCount: K1_LAUNCH(kHitCount); break;
+    default: K1_LAUNCH(kHitFSum); break;
+  }
+#undef K1_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from iresearch_tpu.formats.spec import BLOCK
 from iresearch_tpu_torch.device import check_tensor, runs_plain
 from iresearch_tpu_torch.formats.bitpack import unpack_torch
+from iresearch_tpu_torch.formats.spec import BLOCK
 from iresearch_tpu_torch.kernels import build as kb
 
 

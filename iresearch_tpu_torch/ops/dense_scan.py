@@ -18,13 +18,20 @@ from typing import Sequence, Tuple
 
 import torch
 
-from iresearch_tpu.formats.spec import BLOCK
-from iresearch_tpu.search.scorers import BM25, TFIDF, BoostScore, Scorer
 from iresearch_tpu_torch.device import check_tensor, runs_plain
 from iresearch_tpu_torch.formats.bitpack import unpack_torch
+from iresearch_tpu_torch.formats.spec import BLOCK
 from iresearch_tpu_torch.index.segment import dl_rows
 from iresearch_tpu_torch.kernels import build as kb
-from iresearch_tpu_torch.search.scorers import bm25_consts, f32, score_expr_torch
+from iresearch_tpu_torch.search.scorers import (
+    BM25,
+    TFIDF,
+    BoostScore,
+    Scorer,
+    bm25_consts,
+    f32,
+    score_expr_torch,
+)
 
 MAX_SPANS = 64  # IRS_MAX_SPANS in the kernel source
 

@@ -1,1 +1,1 @@
-"""Torch counterparts of ``iresearch_tpu.search`` device code."""
+"""The port's filters, expansion, host oracle and scorers (copies of ``iresearch_tpu/search``), with torch scoring."""

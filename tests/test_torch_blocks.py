@@ -1,6 +1,7 @@
 """Port building blocks vs the JAX package on the CPU: unpack, scoring,
 exact top-k and segment residency. Inputs come from numpy seeds and go
-through both packages as numpy arrays."""
+through both packages as numpy arrays; scorers and segments reach the
+port through ``to_port`` and ``carry`` (``tests/test_torch_carry.py``)."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from iresearch_tpu_torch.search.scorers import (  # noqa: E402
     score_block_torch,
     score_expr_torch,
 )
+from test_torch_carry import carry, jax_bench_reader, to_port  # noqa: E402
 
 SCORERS = [BM25(), BM25(k=0.9, b=0.4), BM25(b=0.0), TFIDF(),
            TFIDF(with_norms=False), BoostScore()]
@@ -56,7 +58,7 @@ def test_score_block_matches_jax(scorer):
                     jnp.float32(avgdl), xp=jnp)
     )
     got = score_block_torch(
-        scorer, torch.from_numpy(w), torch.from_numpy(f), torch.from_numpy(dl),
+        to_port(scorer), torch.from_numpy(w), torch.from_numpy(f), torch.from_numpy(dl),
         torch.tensor(avgdl),
     ).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0.0)
@@ -73,7 +75,7 @@ def test_score_expr_matches_jax(scorer):
                     jnp.float32(avgdl), jnp)
     )
     got = score_expr_torch(
-        scorer, torch.from_numpy(w), torch.from_numpy(f), torch.from_numpy(dl),
+        to_port(scorer), torch.from_numpy(w), torch.from_numpy(f), torch.from_numpy(dl),
         float(avgdl),
     ).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0.0)
@@ -139,10 +141,8 @@ def test_topk_docs_batched_with_parked_docs():
 
 @pytest.fixture(scope="module")
 def small_reader():
-    from iresearch_tpu.index.segment import SegmentReader
-    from iresearch_tpu_torch.bench_mix import build_segment_data
-
-    return SegmentReader("blocks", build_segment_data(20_000))
+    sr = jax_bench_reader("blocks", 20_000)
+    return sr, carry(sr)
 
 
 def _np(t):
@@ -151,14 +151,15 @@ def _np(t):
 
 def test_device_state_matches_jax_device_field(small_reader):
     """Every array of the port's residency equals the JAX DeviceField's
-    bit for bit (u32 words compared through their int32 view)."""
+    bit for bit (u32 words compared through their int32 view); the port's
+    dense grid is its own build, from its carried reader."""
     from iresearch_tpu_torch.index.segment import device_state
 
-    sr = small_reader
+    sr, psr = small_reader
     jf = sr.device_field("body")
-    st = device_state(sr, torch.device("cpu"))
+    st = device_state(psr, torch.device("cpu"))
     tf = st.field("body")
-    assert device_state(sr, "cpu") is st
+    assert device_state(psr, "cpu") is st
 
     def same(t, a):
         a = np.asarray(a)
@@ -174,10 +175,10 @@ def test_device_state_matches_jax_device_field(small_reader):
     same(tf.norms, jf.norms)
     same(tf.norms_u16, jf.norms_u16)
     same(tf.norms_grid(), jf.norms_grid())
-    cache = sr.dense_cache("body")
+    cache, pcache = sr.dense_cache("body"), psr.dense_cache("body")
     assert cache is not None
     for c, pool in enumerate(cache.pools):
-        same(tf.dense_words(cache, c), jf.dense_words(cache, c))
+        same(tf.dense_words(pcache, c), jf.dense_words(cache, c))
     same(st.alive, sr.device().alive)
     assert tf.avgdl == jf.avgdl
 

@@ -1,0 +1,447 @@
+"""Carrying data from the JAX package to the port, and the port's own host
+layers held against the originals they were copied from, on the CPU.
+
+The port imports nothing of ``iresearch_tpu`` and never accepts its
+objects: a test builds a segment, filter or scorer with the JAX package
+and hands the port its own copy of it:
+
+* ``carry(sr)`` — a JAX ``SegmentReader`` as the port's, through the
+  segment file format both packages share (``write_segment`` bytes into
+  ``carry_segment``), deleted docs included;
+* ``carried(reader)`` — both packages' segment lists of a JAX reader;
+* ``to_port(obj)`` — a JAX filter, phrase part or scorer rebuilt as the
+  port's class of the same name, field by field (``to_jax`` the reverse,
+  for the port's ``bench_mix`` task lists);
+* ``both_knobs(**kv)`` — the planner knobs set in both packages (each has
+  its own ``exec/plan.py`` module and ``DSLICE_PAD``) for one block.
+
+Other test files import these by module name (``from test_torch_carry
+import ...``), as pytest puts this directory on the path. The tests below
+hold every copied module against its original on the same inputs:
+encoded pools, segment files, term dictionary, norms, dense grid, plan
+tier and groups, skyline schedules, and ``HostQuery`` results.
+"""
+
+import contextlib
+import dataclasses
+from collections import namedtuple
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from iresearch_tpu.search import filters as JF  # noqa: E402
+from iresearch_tpu.search import scorers as JS  # noqa: E402
+from iresearch_tpu_torch import bench_mix  # noqa: E402
+from iresearch_tpu_torch.search import filters as PF  # noqa: E402
+from iresearch_tpu_torch.search import scorers as PS  # noqa: E402
+
+_TO_PORT = {JF.__name__: PF, JS.__name__: PS}
+_TO_JAX = {PF.__name__: JF, PS.__name__: JS}
+
+
+def _rebuild(obj, modules):
+    if isinstance(obj, tuple):
+        return tuple(_rebuild(x, modules) for x in obj)
+    mod = modules.get(type(obj).__module__)
+    if mod is None:
+        return obj
+    out = object.__new__(getattr(mod, type(obj).__name__))
+    for f in dataclasses.fields(obj):
+        object.__setattr__(out, f.name, _rebuild(getattr(obj, f.name), modules))
+    return out
+
+
+def to_port(obj):
+    """``obj`` with every JAX-package filter, phrase part and scorer in it
+    rebuilt as the port's class of the same name, field by field (the
+    classes are frozen dataclasses; tuples convert element-wise)."""
+    return _rebuild(obj, _TO_PORT)
+
+
+def to_jax(obj):
+    """The inverse of ``to_port``."""
+    return _rebuild(obj, _TO_JAX)
+
+
+def carry(sr):
+    """The port's reader over a JAX ``SegmentReader``'s segment, through
+    the shared file format, with the same deleted docs. A segment without
+    inline norm pools (format v4) is written as v4, which leaves the JAX
+    reader untouched (the v5+ writer derives the pools in place)."""
+    from iresearch_tpu.formats.segment_io import FORMAT_V4, write_segment
+    from iresearch_tpu_torch.index.segment import carry_segment
+
+    legacy = any(fp.nrm_words is None for fp in sr.data.fields.values())
+    blob = write_segment(sr.data, version=FORMAT_V4) if legacy else write_segment(sr.data)
+    return carry_segment(sr.name, blob, np.flatnonzero(~sr.alive))
+
+
+Segs = namedtuple("Segs", "jax port")
+
+
+def carried(reader) -> Segs:
+    """(JAX segments, the port's carried segments) of a JAX reader."""
+    segs = list(reader.segments)
+    return Segs(segs, [carry(sr) for sr in segs])
+
+
+def jax_bench_data(num_docs: int):
+    """``bench_mix.build_segment_data`` through the JAX package's own
+    inverter and encoder (the same corpus law and seed)."""
+    from iresearch_tpu.formats.postings import encode_field_postings
+    from iresearch_tpu.formats.spec import IndexFeatures
+    from iresearch_tpu.index.invert import invert_numpy
+    from iresearch_tpu.index.segment import SegmentData
+
+    lens, tids = bench_mix.build_corpus(num_docs)
+    doc_of_tok = np.repeat(np.arange(num_docs), lens)
+    starts = np.cumsum(lens) - lens
+    pos = (np.arange(len(tids), dtype=np.int64) - np.repeat(starts, lens)).astype(np.uint32)
+    inv = invert_numpy(tids, doc_of_tok, pos, bench_mix.VOCAB, num_docs)
+    present = np.flatnonzero(np.diff(inv.term_ptr) > 0)
+    terms = [b"t%06d" % t for t in present]
+    offs = np.zeros(len(terms) + 1, np.uint64)
+    offs[1:] = np.cumsum([len(t) for t in terms])
+    tp = np.concatenate([inv.term_ptr[present], [inv.term_ptr[-1]]])
+    fp = encode_field_postings(
+        inv.e_doc, inv.e_freq, tp, b"".join(terms), offs, inv.norms, inv.pos_flat,
+        IndexFeatures.FREQ | IndexFeatures.POS,
+    )
+    return SegmentData(num_docs, {"body": fp}, {})
+
+
+def jax_index_reader(ndocs, nwords, prefix, zipf, seed, maxlen, deletes=(), version=None):
+    """A JAX ``DirectoryReader`` over ``ndocs`` Zipf docs of ``nwords``
+    words written by the JAX package's IndexWriter (a stored ``id``
+    column; ``deletes`` removed in a second commit)."""
+    from iresearch_tpu.index.reader import DirectoryReader
+    from iresearch_tpu.index.writer import Field, IndexWriter, IndexWriterOptions
+    from iresearch_tpu.store.directory import MemoryDirectory
+
+    words = [f"{prefix}{i:02d}" for i in range(nwords)]
+    rng = np.random.default_rng(seed)
+    d = MemoryDirectory()
+    opts = dict(invert_backend="numpy")
+    if version is not None:
+        opts["format_version"] = version
+    with IndexWriter(d, IndexWriterOptions(**opts)) as w:
+        for i in range(ndocs):
+            n = int(rng.integers(2, maxlen))
+            idx = np.minimum(rng.zipf(zipf, size=n) - 1, nwords - 1)
+            w.insert([
+                Field("body", " ".join(words[j] for j in idx), analyzer="segmentation"),
+                Field("id", str(i), index=True, store=True),
+            ])
+        w.commit()
+        for i in deletes:
+            w.remove(JF.ByTerm("id", str(i)))
+        if deletes:
+            w.commit()
+    return DirectoryReader.open(d)
+
+
+def jax_bench_reader(name: str, num_docs: int, masked_docs=None):
+    from iresearch_tpu.index.segment import SegmentReader
+
+    return SegmentReader(name, jax_bench_data(num_docs), masked_docs=masked_docs)
+
+
+@contextlib.contextmanager
+def _jax_knobs(**knobs):
+    import iresearch_tpu.exec.plan as planmod
+    import iresearch_tpu.exec.plancache as plancache
+    import iresearch_tpu.index.segment as segmod
+
+    mods = {n: segmod if n == "DSLICE_PAD" else planmod for n in knobs}
+    old = {n: getattr(mods[n], n) for n in knobs}
+    plancache.clear_plan_cache()
+    try:
+        for n, v in knobs.items():
+            setattr(mods[n], n, v)
+        yield
+    finally:
+        for n, v in old.items():
+            setattr(mods[n], n, v)
+        plancache.clear_plan_cache()
+
+
+@contextlib.contextmanager
+def both_knobs(**knobs):
+    """Planner knobs set in both packages for the block (plan caches
+    cleared around it, as their keys hold no knob)."""
+    with _jax_knobs(**knobs), bench_mix.planner_knobs(**knobs):
+        yield
+
+
+# --- parity of the copies ------------------------------------------------
+
+
+def _same(a, b, what):
+    if isinstance(a, (bytes, memoryview)) or isinstance(b, (bytes, memoryview)):
+        assert bytes(a) == bytes(b), what
+    elif a is None or b is None:
+        assert a is None and b is None, what
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{what}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, a.dtype, b.dtype, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b, err_msg=what)
+    else:
+        assert a == b, (what, a, b)
+
+
+def _same_fields(port_fp, jax_fp, what):
+    for f in dataclasses.fields(jax_fp):
+        _same(getattr(port_fp, f.name), getattr(jax_fp, f.name), f"{what}.{f.name}")
+
+
+def _same_dense(pc, jc, what):
+    assert (pc is None) == (jc is None), what
+    if jc is not None:
+        for f in dataclasses.fields(jc):
+            _same(getattr(pc, f.name), getattr(jc, f.name), f"{what}.{f.name}")
+
+
+@pytest.fixture(scope="module")
+def bench20k():
+    """The bench corpus at 20k docs, built by the JAX package, and the
+    port's own build of it."""
+    jsr = jax_bench_reader("carry20k", 20_000)
+    return jsr, bench_mix.build_segment_data(20_000)
+
+
+def test_bench_segment_build_matches_jax(bench20k):
+    """The port's inverter and encoder give the JAX package's pools, term
+    dictionary and norms, and the same segment file bytes."""
+    from iresearch_tpu.formats.segment_io import write_segment as jax_write
+    from iresearch_tpu_torch.formats.segment_io import write_segment
+
+    jsr, pdata = bench20k
+    assert pdata.num_docs == jsr.num_docs
+    _same_fields(pdata.fields["body"], jsr.data.fields["body"], "body")
+    assert write_segment(pdata) == jax_write(jsr.data)
+
+
+@pytest.fixture(scope="module")
+def cand_reader():
+    """``tests/test_candidates.py``'s corpus (800 docs, two deleted),
+    written by the JAX package's IndexWriter, with a stored column."""
+    return jax_index_reader(800, 30, "t", 1.4, 31, 24, deletes=(13, 400))
+
+
+@pytest.mark.parametrize("which", ["bench20k", "cand_reader", "legacy_v4"])
+def test_carry_segment_keeps_fields_columns_and_deletes(request, which):
+    """``carry_segment`` reads the JAX package's file into the same
+    arrays, term dictionary, stored columns and deleted docs; the port's
+    dense grid over them equals the JAX package's. A v4 segment (no
+    inline norm pools) stays v4 and the JAX reader is left as it was."""
+    if which == "bench20k":
+        jsrs = [request.getfixturevalue("bench20k")[0]]
+    elif which == "cand_reader":
+        jsrs = list(request.getfixturevalue("cand_reader").segments)
+    else:
+        jsrs = list(jax_index_reader(300, 20, "t", 1.4, 5, 24, deletes=(7,),
+                                     version="iresearch_tpu/4").segments)
+    for jsr in jsrs:
+        psr = carry(jsr)
+        if which == "legacy_v4":
+            assert jsr.data.fields["body"].nrm_words is None
+            assert psr.data.fields["body"].nrm_words is None
+        assert psr.num_docs == jsr.num_docs and psr.name == jsr.name
+        _same(psr.alive, jsr.alive, "alive")
+        assert psr.has_deletes == jsr.has_deletes
+        assert sorted(psr.data.fields) == sorted(jsr.data.fields)
+        for name, jfp in jsr.data.fields.items():
+            _same_fields(psr.data.fields[name], jfp, name)
+            assert list(psr.terms(name)) == list(jsr.terms(name))
+            _same_dense(psr.dense_cache(name), jsr.dense_cache(name), f"dense {name}")
+        for name, jcol in jsr.data.columns.items():
+            pcol = psr.column(name)
+            assert pcol.kind == jcol.kind
+            assert list(pcol.items()) == list(jcol.items())
+        dead = np.flatnonzero(~jsr.alive)
+        assert not psr.alive[dead].any() and psr.live_docs_count == jsr.live_docs_count
+    if which == "cand_reader":
+        np.testing.assert_array_equal(np.flatnonzero(~jsrs[-1].alive), [13, 400])
+
+
+def test_port_segment_file_reads_in_jax(bench20k):
+    """The reverse direction: the JAX package reads the port's file."""
+    from iresearch_tpu.formats.segment_io import read_segment as jax_read
+    from iresearch_tpu_torch.formats.segment_io import write_segment
+
+    jsr, pdata = bench20k
+    back = jax_read(write_segment(pdata))
+    _same_fields(pdata.fields["body"], back.fields["body"], "body")
+
+
+def test_filter_and_scorer_conversion_round_trips():
+    """Every filter class, phrase part and scorer rebuilds field by field,
+    equal to the port's own construction and back."""
+    jax_objs = [
+        JF.ByTerm("body", "a", boost=2.0),
+        JF.ByTerms("body", [("a", 1.5), "b"], min_match=2),
+        JF.ByPrefix("body", "ab", scored_terms_limit=3),
+        JF.ByWildcard("body", "a%b_"),
+        JF.ByEditDistance("body", "abc", max_distance=2, prefix="a"),
+        JF.ByRange("body", "a", "c", include_high=False),
+        JF.ByGranularRange("num", 1.0, 9.0),
+        JF.ByPhrase("body", ["a", (2, JF.PhrasePrefix("b")), JF.PhraseSet(["c", "d"]),
+                             JF.PhraseFuzzy("e"), JF.PhraseWildcard("f%")]),
+        JF.BySamePosition([("body", "a"), ("title", "b")]),
+        JF.ByNgramSimilarity("body", ["ab", "bc"], threshold=0.5),
+        JF.ByColumnExistence("id", prefix_match=True),
+        JF.ByNested(JF.ByTerm("kind", "p"), JF.ByTerm("body", "a"), max_match=3),
+        JF.And(JF.ByTerm("body", "a"), JF.Not(JF.ByTerm("body", "b")), merge="max"),
+        JF.Or(JF.ByTerm("body", "a"), JF.All(), JF.Empty(), min_match=2),
+        JF.Proxy(JF.ByTerm("body", "a")),
+        JS.BM25(k=0.9, b=0.4), JS.TFIDF(with_norms=False), JS.BoostScore(),
+    ]
+    port_objs = [
+        PF.ByTerm("body", "a", boost=2.0),
+        PF.ByTerms("body", [("a", 1.5), "b"], min_match=2),
+        PF.ByPrefix("body", "ab", scored_terms_limit=3),
+        PF.ByWildcard("body", "a%b_"),
+        PF.ByEditDistance("body", "abc", max_distance=2, prefix="a"),
+        PF.ByRange("body", "a", "c", include_high=False),
+        PF.ByGranularRange("num", 1.0, 9.0),
+        PF.ByPhrase("body", ["a", (2, PF.PhrasePrefix("b")), PF.PhraseSet(["c", "d"]),
+                             PF.PhraseFuzzy("e"), PF.PhraseWildcard("f%")]),
+        PF.BySamePosition([("body", "a"), ("title", "b")]),
+        PF.ByNgramSimilarity("body", ["ab", "bc"], threshold=0.5),
+        PF.ByColumnExistence("id", prefix_match=True),
+        PF.ByNested(PF.ByTerm("kind", "p"), PF.ByTerm("body", "a"), max_match=3),
+        PF.And(PF.ByTerm("body", "a"), PF.Not(PF.ByTerm("body", "b")), merge="max"),
+        PF.Or(PF.ByTerm("body", "a"), PF.All(), PF.Empty(), min_match=2),
+        PF.Proxy(PF.ByTerm("body", "a")),
+        PS.BM25(k=0.9, b=0.4), PS.TFIDF(with_norms=False), PS.BoostScore(),
+    ]
+    for j, p in zip(jax_objs, port_objs):
+        got = to_port(j)
+        assert type(got) is type(p) and got == p and hash(got) == hash(p), (j, p)
+        assert to_jax(p) == j
+
+
+def _plans_equal(pp, jp, what):
+    for f in dataclasses.fields(jp):
+        if f.name == "cache":
+            continue
+        a, b = getattr(pp, f.name), getattr(jp, f.name)
+        if f.name == "groups":
+            assert len(a) == len(b), what
+            for i, (x, y) in enumerate(zip(a, b)):
+                for g in dataclasses.fields(y):
+                    _same(getattr(x, g.name), getattr(y, g.name), f"{what} group {i}.{g.name}")
+        elif f.name == "dense_spans":
+            assert len(a) == len(b), what
+            for i, (x, y) in enumerate(zip(a, b)):
+                for g in dataclasses.fields(y):
+                    _same(getattr(x, g.name), getattr(y, g.name), f"{what} span {i}.{g.name}")
+        else:
+            _same(a, b, f"{what}.{f.name}")
+
+
+def _plan_both(jsr, psr, flt, scorer, wand):
+    """(port plan, JAX plan) of one filter on one segment, compiled fresh
+    by each package's PlanCompiler over its own HostQuery."""
+    from iresearch_tpu.exec.plan import PlanCompiler as JaxCompiler
+    from iresearch_tpu.search.host_eval import HostQuery as JaxHostQuery
+    from iresearch_tpu_torch.exec.plan import PlanCompiler
+    from iresearch_tpu_torch.search.host_eval import HostQuery
+
+    pflt, pscorer = to_port(flt), to_port(scorer)
+    pp = PlanCompiler(HostQuery(pflt, [psr], pscorer), pscorer).compile(
+        pflt, 0, wand=wand, device_phrase=False)
+    jp = JaxCompiler(JaxHostQuery(flt, [jsr], scorer), scorer).compile(
+        flt, 0, wand=wand, device_phrase=False)
+    return pp, jp
+
+
+def _task_lists(psr, lists=("mix", "breadth", "tiers")):
+    """The tasks of the port's bench lists, as JAX filters, with their
+    WAND flags and planner knobs."""
+    tasks = []
+    if "mix" in lists:
+        tasks += [(c, to_jax(f), True, {}) for c, f in bench_mix.task_mix(psr)]
+    if "breadth" in lists:
+        tasks += [(n, to_jax(f), w, {}) for n, f, w in bench_mix.breadth_tasks(psr)]
+    if "tiers" in lists:
+        tasks += [(t, to_jax(f), True, k) for t, f, k in bench_mix.tier_tasks(psr)]
+    return tasks
+
+
+PLAN_LISTS = {"mix": {"dense", "dslice"}, "breadth": {"dense", "sort", "join", "gridmix"},
+              "tiers": {"dense", "direct", "sort", "join", "gridmix"}}
+
+
+@pytest.mark.parametrize("lists", sorted(PLAN_LISTS))
+def test_plans_match_jax(bench20k, lists):
+    """The port's planner gives the JAX package's plan (tier, tree, groups,
+    rows, weights, WAND bounds, dense spans, aux pairs) and skyline
+    schedule for every task of the mix, the breadth categories and the
+    tier batch (one list per case), each under its own knobs."""
+    from iresearch_tpu.exec.skyline import skyline_spec as jax_skyline_spec
+    from iresearch_tpu_torch.exec.skyline import skyline_spec
+
+    jsr, _pdata = bench20k
+    psr = carry(jsr)
+    scorer = JS.BM25()
+    modes = set()
+    for name, flt, wand, knobs in _task_lists(psr, (lists,)):
+        with both_knobs(**knobs):
+            pp, jp = _plan_both(jsr, psr, flt, scorer, wand)
+        _plans_equal(pp, jp, name)
+        modes.add(pp.exec_mode)
+        if pp.exec_mode == "dense" and not pp.groups:
+            ps = skyline_spec(pp, psr, to_port(scorer), 10)
+            js = jax_skyline_spec(jp, jsr, scorer, 10)
+            assert (ps is None) == (js is None), name
+            if js is not None:
+                for f in dataclasses.fields(js):
+                    _same(getattr(ps, f.name), getattr(js, f.name), f"{name} sky.{f.name}")
+    assert PLAN_LISTS[lists] <= modes, modes
+
+
+def _host_queries(psr):
+    tasks = [f for _n, f, _w, _k in _task_lists(psr)]
+    h, m, lo = tasks[0], tasks[80], tasks[160]
+    return tasks[::7] + [
+        JF.ByPhrase("body", [h.term, m.term]),
+        JF.ByWildcard("body", "t00_1%"),
+        JF.ByRange("body", lo.term, m.term),
+        JF.Or(h, JF.Not(m), min_match=1, merge="max"),
+        JF.And(h, m, merge="min"),
+    ]
+
+
+@pytest.mark.parametrize("scorer", [JS.BM25(), JS.TFIDF()], ids=["bm25", "tfidf"])
+def test_host_query_matches_jax(bench20k, cand_reader, scorer):
+    """The port's HostQuery (expansion, sampling, stats, scoring) equals
+    the JAX package's bit for bit, with BM25 and TFIDF, on the bench
+    segment and on a reader with deletes."""
+    from iresearch_tpu.search.host_eval import HostQuery as JaxHostQuery
+    from iresearch_tpu_torch.search.host_eval import HostQuery
+
+    jsr, _pdata = bench20k
+    psr = carry(jsr)
+    cand = carried(cand_reader)
+    T = lambda t: JF.ByTerm("body", t)  # noqa: E731
+    cases = [([jsr], [psr], f) for f in _host_queries(psr)] + [
+        (cand.jax, cand.port, f) for f in (
+            T("t00"), JF.And(T("t01"), JF.Not(T("t00"))),
+            JF.Or(T("t02"), T("t05"), min_match=2),
+            JF.ByPhrase("body", ["t00", "t01"]), JF.ByEditDistance("body", "t11"),
+        )
+    ]
+    for jsegs, psegs, flt in cases:
+        want = JaxHostQuery(flt, jsegs, scorer)
+        got = HostQuery(to_port(flt), psegs, to_port(scorer))
+        w, g = want.execute(0), got.execute(0)
+        np.testing.assert_array_equal(g.match, w.match, err_msg=repr(flt))
+        np.testing.assert_array_equal(g.score, w.score, err_msg=repr(flt))
+        assert got.top_k(10) == want.top_k(10)

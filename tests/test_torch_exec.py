@@ -13,6 +13,10 @@ Three kinds of check, all on seeded readers:
   mode), and against the numpy oracle (``HostQuery``);
 * the global entry points ``top_k``/``search_device``/``QueryBatch.search``.
 
+The JAX package builds every reader, filter and scorer; the port gets its
+own copies through ``carry``/``carried`` and ``to_port``, and planner knobs
+are set in both packages (``tests/test_torch_carry.py``).
+
 Tolerances: scores to rtol 1e-5 (atol 1e-6), the exactness gate; docs
 equal except for swaps inside near-ties. A tie group that reaches the end
 of a full top-k list may hold different docs in the two lists: on the CPU
@@ -23,7 +27,9 @@ exactly.
 """
 
 import contextlib
+import dataclasses
 from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -44,6 +50,16 @@ from iresearch_tpu_torch import bench_mix  # noqa: E402
 from iresearch_tpu_torch.exec import candidates as tc  # noqa: E402
 from iresearch_tpu_torch.exec import executor as tex  # noqa: E402
 from iresearch_tpu_torch.exec.batch import QueryBatch, group_call  # noqa: E402
+from test_torch_carry import (  # noqa: E402
+    Segs,
+    both_knobs,
+    carried,
+    carry,
+    jax_bench_reader,
+    jax_index_reader,
+    to_jax,
+    to_port,
+)
 
 CPU = torch.device("cpu")
 
@@ -51,60 +67,39 @@ CPU = torch.device("cpu")
 # --- readers ---------------------------------------------------------------
 
 
-def _reader(ndocs, nwords, prefix, zipf, seed, maxlen, deletes=(), version=None):
-    words = [f"{prefix}{i:02d}" for i in range(nwords)]
-    rng = np.random.default_rng(seed)
-    d = MemoryDirectory()
-    opts = dict(invert_backend="numpy")
-    if version is not None:
-        opts["format_version"] = version
-    with IndexWriter(d, IndexWriterOptions(**opts)) as w:
-        for i in range(ndocs):
-            n = int(rng.integers(2, maxlen))
-            idx = np.minimum(rng.zipf(zipf, size=n) - 1, nwords - 1)
-            w.insert([
-                Field("body", " ".join(words[j] for j in idx), analyzer="segmentation"),
-                Field("id", str(i), index=True, store=True),
-            ])
-        w.commit()
-        for i in deletes:
-            w.remove(F.ByTerm("id", str(i)))
-        if deletes:
-            w.commit()
-    return DirectoryReader.open(d)
-
-
 @pytest.fixture(scope="module")
 def zipf_reader():
     """``tests/test_wand.py``'s corpus: 3000 docs, 40 words, Zipf(1.3)."""
-    return _reader(3000, 40, "w", 1.3, 21, 40)
+    return carried(jax_index_reader(3000, 40, "w", 1.3, 21, 40))
 
 
 @pytest.fixture(scope="module")
 def cand_reader():
     """``tests/test_candidates.py``'s corpus: 800 docs, two deleted."""
-    return _reader(800, 30, "t", 1.4, 31, 24, deletes=(13, 400))
+    return carried(jax_index_reader(800, 30, "t", 1.4, 31, 24, deletes=(13, 400)))
 
 
 @pytest.fixture(scope="module")
 def legacy_reader():
     """The same corpus written as format v4: no inline norm pools, so
     every group decodes with bn == -1 and reads norms[docs]."""
-    r = _reader(800, 30, "t", 1.4, 31, 24, deletes=(13, 400), version="iresearch_tpu/4")
-    assert r.segments[0].data.fields["body"].nrm_words is None
-    return r
+    r = jax_index_reader(800, 30, "t", 1.4, 31, 24, deletes=(13, 400), version="iresearch_tpu/4")
+    segs = carried(r)
+    assert segs.jax[0].data.fields["body"].nrm_words is None
+    assert segs.port[0].data.fields["body"].nrm_words is None
+    return segs
 
 
 @pytest.fixture(scope="module")
 def bench20k():
     """The bench corpus law at 20k docs: High/Med terms on the dense grid,
-    Low terms sparse (gridmix, join with grid probes, dslice)."""
-    from iresearch_tpu.index.segment import SegmentReader
-
-    sr = SegmentReader("exec20k", bench_mix.build_segment_data(20_000))
-    mix = bench_mix.task_mix(sr)
+    Low terms sparse (gridmix, join with grid probes, dslice). The
+    categories are JAX filters."""
+    sr = jax_bench_reader("exec20k", 20_000)
+    segs = Segs([sr], [carry(sr)])
+    mix = [(c, to_jax(f)) for c, f in bench_mix.task_mix(segs.port[0])]
     cats = {c: [f for cc, f in mix if cc == c] for c in ("HighTerm", "MedTerm", "LowTerm")}
-    return sr, cats
+    return segs, cats
 
 
 # --- planner knobs, decode route ---------------------------------------------
@@ -112,11 +107,11 @@ def bench20k():
 
 @pytest.fixture()
 def knobs():
-    """``knobs(**kv)`` sets planner knobs until the test ends
-    (``bench_mix.planner_knobs``, which clears the plan cache around
-    them: its key holds no knob)."""
+    """``knobs(**kv)`` sets planner knobs in both packages until the test
+    ends (``both_knobs``, which clears the plan caches around them: their
+    keys hold no knob)."""
     with contextlib.ExitStack() as stack:
-        yield lambda **kv: stack.enter_context(bench_mix.planner_knobs(**kv))
+        yield lambda **kv: stack.enter_context(both_knobs(**kv))
 
 
 FORCED = dict(SORT_MAX_RATIO=1e9, JOIN_MAX_RATIO=1e9, USE_DENSE_TERMS=False)
@@ -186,16 +181,17 @@ def _oracle(flt, segs, scorer, k):
 
 def check_single(flt, segs, scorer, k, *, oracle=True, **kw):
     """The port's DeviceQuery vs the JAX package's (and the oracle) on
-    segment 0; returns the tier the port took."""
+    segment 0 of ``segs`` (a ``Segs`` pair); returns the tier the port
+    took."""
     from iresearch_tpu.exec import DeviceQuery as JaxDeviceQuery
 
     kw.setdefault("device_phrase", False)
-    want = JaxDeviceQuery(flt, segs, scorer, **kw).execute_segment(0, k)
-    tq = tex.DeviceQuery(flt, segs, scorer, device=CPU, **kw)
+    want = JaxDeviceQuery(flt, segs.jax, scorer, **kw).execute_segment(0, k)
+    tq = tex.DeviceQuery(to_port(flt), segs.port, to_port(scorer), device=CPU, **kw)
     got = tq.execute_segment(0, k)
     assert_topk_near(got, want)
     if oracle:
-        ov, od = _oracle(flt, segs, scorer, len(got[0]))
+        ov, od = _oracle(flt, segs.jax, scorer, len(got[0]))
         assert_topk_near(got, (ov, od))
     # on CPU tensors the kernel wrappers take their plain versions
     pv, pd = tq.execute_segment(0, k, plain=True)
@@ -209,8 +205,9 @@ def check_batch(filters, segs, scorer, k, **kw):
     the number of queries per tier."""
     from iresearch_tpu.exec.batch import QueryBatch as JaxQueryBatch
 
-    want = JaxQueryBatch(filters, segs, scorer, **kw).prepare(0, k).run()
-    prep = QueryBatch(filters, segs, scorer, device=CPU, **kw).prepare(0, k)
+    want = JaxQueryBatch(filters, segs.jax, scorer, **kw).prepare(0, k).run()
+    prep = QueryBatch(to_port(tuple(filters)), segs.port, to_port(scorer),
+                      device=CPU, **kw).prepare(0, k)
     got = prep.run()
     assert len(got) == len(want) == len(filters)
     for (gv, gd), (wv, wd) in zip(got, want):
@@ -241,7 +238,7 @@ FOLD_QUERIES = [
 
 @pytest.mark.parametrize("scorer", [BM25(), TFIDF()], ids=["bm25", "tfidf"])
 def test_fold_tier_matches_jax(zipf_reader, jax_decode, scorer):
-    segs = list(zipf_reader.segments)
+    segs = zipf_reader
     tiers = {check_single(f, segs, scorer, 10) for f in FOLD_QUERIES}
     assert tiers == {"fold"}, tiers
     # the batch scans single grid terms with no single-span gate
@@ -259,7 +256,7 @@ def test_aux_tier_matches_jax(cand_reader, jax_decode):
     """Phrases evaluated on the host as aux leaves (device_phrase=False),
     their sparse (docs, scores) densified on the device; the reader has
     deletes."""
-    segs = list(cand_reader.segments)
+    segs = cand_reader
     for k in (1, 10):
         assert {check_single(f, segs, BM25(), k) for f in AUX_QUERIES} == {"aux"}
     assert set(check_batch(AUX_QUERIES, segs, BM25(), 10)) == {"aux"}
@@ -282,7 +279,7 @@ def test_wand_tier_matches_jax(zipf_reader, knobs, jax_decode, mode):
     """Block-max WAND over dense-grid spans (``tests/test_wand.py`` turns
     the join and merge tiers off the same way)."""
     knobs(JOIN_MAX_SPANS=0)
-    segs = list(zipf_reader.segments)
+    segs = zipf_reader
     kw = dict(wand=True, wand_sample=8, wand_mode=mode)
     for k in (1, 10):
         tiers = {
@@ -315,7 +312,7 @@ def test_candidate_tiers_match_jax(cand_reader, knobs, jax_decode, scorer):
     """dslice, sort and join forced as ``tests/test_candidates.py`` forces
     them, on a reader with deletes."""
     knobs(**FORCED)
-    segs = list(cand_reader.segments)
+    segs = cand_reader
     tiers = Counter(check_single(f, segs, scorer, 10) for f in CAND_QUERIES)
     assert tiers == {"dslice": 1, "sort": 4, "join": 3}, tiers
     assert check_batch(CAND_QUERIES, segs, scorer, 10) == tiers
@@ -332,10 +329,10 @@ SORT_WAND_QUERIES = [
 @pytest.mark.parametrize("mode", ["exact", "strict", "approx"])
 def test_sort_tier_wand_matches_jax(cand_reader, knobs, jax_decode, mode):
     knobs(**FORCED)
-    segs = list(cand_reader.segments)
+    segs = cand_reader
     kw = dict(wand=True, wand_sample=2, wand_mode=mode)
     for f in SORT_WAND_QUERIES:
-        tq = tex.DeviceQuery(f, segs, BM25(), device=CPU, **kw)
+        tq = tex.DeviceQuery(to_port(f), segs.port, to_port(BM25()), device=CPU, **kw)
         assert tq.plan(0).groups[0].ub is not None
         assert check_single(f, segs, BM25(), 10, oracle=mode == "exact", **kw) == "sort"
     assert set(check_batch(SORT_WAND_QUERIES, segs, BM25(), 10, **kw)) == {"sort"}
@@ -346,7 +343,7 @@ def test_direct_tier_matches_jax(zipf_reader, knobs, jax_decode, wand):
     """A single sparse term longer than the dslice bound takes the direct
     tier (the bound is lowered to 8 blocks so 3000 docs reach it)."""
     knobs(DSLICE_PAD=8, USE_DENSE_TERMS=False)
-    segs = list(zipf_reader.segments)
+    segs = zipf_reader
     kw = dict(wand=wand, wand_sample=4)
     queries = [T("w00"), T("w01"), T("w05")]
     for f in queries:
@@ -358,7 +355,7 @@ def test_gridmix_and_grid_probe_join_match_jax(bench20k, jax_decode):
     """Dense-grid and sparse spans together at the default knobs: gridmix
     (Or of High and Low terms, min_match, prefix, fuzzy) and join with
     grid-probed spans (And of a High and a Low term)."""
-    sr, c = bench20k
+    segs, c = bench20k
     h, m, lo = c["HighTerm"], c["MedTerm"], c["LowTerm"]
     queries = {
         "gridmix": [
@@ -374,9 +371,9 @@ def test_gridmix_and_grid_probe_join_match_jax(bench20k, jax_decode):
     filters = []
     for tier, fl in queries.items():
         for f in fl:
-            assert check_single(f, [sr], BM25(), 10) == tier
+            assert check_single(f, segs, BM25(), 10) == tier
         filters += fl
-    tiers = check_batch(filters, [sr], BM25(), 10, wand=True)
+    tiers = check_batch(filters, segs, BM25(), 10, wand=True)
     assert set(tiers) == set(queries), tiers
 
 
@@ -384,36 +381,37 @@ def test_smoke_queries_match_jax(bench20k):
     """``chip_smoke.py``'s new phase at 20k docs: the breadth categories
     and a term of each mix category through the single-query executor, and
     one query per tier in one batch, each plan under its own planner knobs
-    (``bench_mix.planner_knobs``), on both packages."""
+    (set in both packages), on both packages."""
     from iresearch_tpu.exec.batch import QueryBatch as JaxQueryBatch
 
-    sr, c = bench20k
+    segs, c = bench20k
+    psr = segs.port[0]
     single = Counter()
-    for name, flt, wand in bench_mix.breadth_tasks(sr):
+    for name, flt, wand in bench_mix.breadth_tasks(psr):
         if name != "Phrase":
-            single[check_single(flt, [sr], BM25(), 10, wand=wand)] += 1
+            single[check_single(to_jax(flt), segs, BM25(), 10, wand=wand)] += 1
     for cat in ("HighTerm", "LowTerm"):
-        single[check_single(c[cat][7], [sr], BM25(), 10, wand=True)] += 1
+        single[check_single(c[cat][7], segs, BM25(), 10, wand=True)] += 1
     # a lone grid term with WAND: no skyline at this size, no single-span scan
     assert single == {"scan": 4, "wand": 1, "dslice": 1, "join": 1, "sort": 1, "gridmix": 1}
-    tt = bench_mix.tier_tasks(sr)
+    tt = bench_mix.tier_tasks(psr)
     filters = [f for _t, f, _k in tt]
-    port = QueryBatch(filters, [sr], BM25(), wand=True, device=CPU)
-    ref = JaxQueryBatch(filters, [sr], BM25(), wand=True)
+    port = QueryBatch(filters, segs.port, to_port(BM25()), wand=True, device=CPU)
+    ref = JaxQueryBatch(to_jax(tuple(filters)), segs.jax, BM25(), wand=True)
     for tq, jq, (_tier, _f, knobs) in zip(port.queries, ref.queries, tt):
-        with bench_mix.planner_knobs(**knobs):
+        with both_knobs(**knobs):
             tq.plan(0), jq.plan(0)
     prep = port.prepare(0, 10)
     assert [call[0] for call in prep.calls] == [t for t, _f, _k in tt]
     for (gv, gd), (wv, wd), flt in zip(prep.run(), ref.prepare(0, 10).run(), filters):
         assert_topk_near((gv.numpy(), gd.numpy()), (wv, wd))
-        assert_topk_near((gv.numpy(), gd.numpy()), _oracle(flt, [sr], BM25(), 10))
+        assert_topk_near((gv.numpy(), gd.numpy()), _oracle(to_jax(flt), segs.jax, BM25(), 10))
 
 
 def test_legacy_segment_matches_jax(legacy_reader, knobs, jax_decode):
     """bn == -1: the freq pool stands in for the norm pool and dl is
     norms[docs], in the fold, WAND, dslice, sort and join tiers."""
-    segs = list(legacy_reader.segments)
+    segs = legacy_reader
     fold = [F.Not(T("t02")), F.And(T("t00"), F.ByPhrase("body", ["t01", "t02"]))]
     assert {check_single(f, segs, BM25(), 10) for f in fold} == {"fold", "aux"}
     assert check_single(T("t00"), segs, BM25(), 10, wand=True, wand_sample=2) == "wand"
@@ -450,7 +448,7 @@ def two_segment_reader():
         w.commit()
     r = DirectoryReader.open(d)
     assert len(r.segments) == 2
-    return r
+    return carried(r)
 
 
 GLOBAL_QUERIES = [
@@ -470,9 +468,11 @@ def _near_lists(got, want):
 def test_search_device_matches_jax(two_segment_reader):
     from iresearch_tpu.exec import search_device as jax_search_device
 
+    segs = two_segment_reader
     for flt in GLOBAL_QUERIES:
-        got = tex.search_device(two_segment_reader, flt, BM25(), k=10, device=CPU)
-        want = jax_search_device(two_segment_reader, flt, BM25(), k=10)
+        got = tex.search_device(SimpleNamespace(segments=segs.port), to_port(flt),
+                                to_port(BM25()), k=10, device=CPU)
+        want = jax_search_device(SimpleNamespace(segments=segs.jax), flt, BM25(), k=10)
         _near_lists(got, want)
         assert got == sorted(got, key=lambda t: (-t[1], t[0]))
 
@@ -480,36 +480,42 @@ def test_search_device_matches_jax(two_segment_reader):
 def test_query_batch_search_matches_jax(two_segment_reader):
     from iresearch_tpu.exec.batch import QueryBatch as JaxQueryBatch
 
-    segs = list(two_segment_reader.segments)
-    got = QueryBatch(GLOBAL_QUERIES, segs, BM25(), device=CPU).search(10)
-    want = JaxQueryBatch(GLOBAL_QUERIES, segs, BM25()).search(10)
+    segs = two_segment_reader
+    port = QueryBatch(to_port(tuple(GLOBAL_QUERIES)), segs.port, to_port(BM25()), device=CPU)
+    got = port.search(10)
+    want = JaxQueryBatch(GLOBAL_QUERIES, segs.jax, BM25()).search(10)
     for g, w in zip(got, want):
         _near_lists(g, w)
-    per_seg = QueryBatch(GLOBAL_QUERIES, segs, BM25(), device=CPU).execute_segment(1, 10)
+    per_seg = port.execute_segment(1, 10)
     assert all(isinstance(v, np.ndarray) and v.shape == (10,) for v, _d in per_seg)
 
 
 def test_device_phrase_default_raises(cand_reader):
     """The JAX default device_phrase=True runs phrases on the device, which
     is not ported yet (ROADMAP queue 1 item 11)."""
-    segs = list(cand_reader.segments)
-    flt = F.And(T("t00"), F.ByPhrase("body", ["t01", "t02"]))
+    segs = cand_reader
+    flt = to_port(F.And(T("t00"), F.ByPhrase("body", ["t01", "t02"])))
     with pytest.raises(NotImplementedError, match="item 11"):
-        tex.DeviceQuery(flt, segs, BM25(), device=CPU).execute_segment(0, 10)
+        tex.DeviceQuery(flt, segs.port, to_port(BM25()), device=CPU).execute_segment(0, 10)
 
 
 def test_device_aux_plan_raises(cand_reader):
-    """A plan with an on-device phrase (compiled by the JAX package) has
-    no tier in the port yet."""
+    """On-device phrases are not ported: the port's planner refuses to
+    compile one (the JAX package's plan has a ``device_aux`` row there),
+    and a plan that carries one has no tier."""
     from iresearch_tpu.exec import DeviceQuery as JaxDeviceQuery
 
-    segs = list(cand_reader.segments)
+    segs = cand_reader
     flt = F.ByPhrase("body", ["t00", "t01"])
-    plan = JaxDeviceQuery(flt, segs, BM25()).plan(0)
-    assert plan.device_aux
+    assert JaxDeviceQuery(flt, segs.jax, BM25()).plan(0).device_aux
+    pq = tex.DeviceQuery(to_port(flt), segs.port, to_port(BM25()), device_phrase=False,
+                         device=CPU)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pq.compiler.compile(pq.flt, 0, device_phrase=True)
+    plan = dataclasses.replace(pq.plan(0), device_aux=((0, None),))
     with pytest.raises(NotImplementedError, match="device_aux"):
         group_call(
-            segs[0], [plan], 10, BM25(), CPU, sky_specs=[None], sky_M=None,
+            segs.port[0], [plan], 10, pq.scorer, CPU, sky_specs=[None], sky_M=None,
             wand_sample=16, wand_mode="exact", single=True,
         )
 
@@ -517,17 +523,25 @@ def test_device_aux_plan_raises(cand_reader):
 def test_prepare_all_raises(two_segment_reader):
     """The merge across segments on the device is not ported yet (ROADMAP
     queue 1 item 12); ``search`` merges on the host."""
-    qb = QueryBatch(GLOBAL_QUERIES, list(two_segment_reader.segments), BM25(), device=CPU)
+    qb = QueryBatch(to_port(tuple(GLOBAL_QUERIES)), two_segment_reader.port,
+                    to_port(BM25()), device=CPU)
     with pytest.raises(NotImplementedError, match="item 12"):
         qb.prepare_all(10)
 
 
 def test_device_query_needs_a_device(cand_reader):
-    with pytest.raises(TypeError):
-        tex.DeviceQuery(T("t00"), list(cand_reader.segments), BM25())
+    """Without a ``device`` the query runs on the card, and raises where
+    there is none; it takes none of the JAX package's objects."""
+    flt, segs, scorer = to_port(T("t00")), cand_reader.port, to_port(BM25())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tex.DeviceQuery(flt, segs, scorer)
     with pytest.raises(ValueError):
-        tex.DeviceQuery(T("t00"), list(cand_reader.segments), BM25(),
-                        wand_mode="fuzzy", device=CPU)
+        tex.DeviceQuery(flt, segs, scorer, wand_mode="fuzzy", device=CPU)
+    with pytest.raises(TypeError, match="SegmentReader"):
+        tex.DeviceQuery(flt, cand_reader.jax, scorer, device=CPU)
+    with pytest.raises(TypeError, match="Filter"):
+        tex.DeviceQuery(T("t00"), segs, scorer, device=CPU)
 
 
 # --- bodies on the JAX package's own device inputs ----------------------------
@@ -544,13 +558,17 @@ def _j(t):
 
 class Inputs:
     """One plan's device inputs as the JAX DeviceQuery builds them, and
-    the same arrays as torch tensors with a query axis of 1."""
+    the same arrays as torch tensors with a query axis of 1. ``kw`` holds
+    the static arguments for the port's bodies (its own scorer), ``jkw``
+    those for the JAX package's."""
 
     def __init__(self, flt, segs, scorer=BM25(), **kw):
         from iresearch_tpu.exec import DeviceQuery as JaxDeviceQuery
 
+        self.flt, self.segs, self.dq_kw = flt, segs, kw
         self.scorer = scorer
-        self.jq = JaxDeviceQuery(flt, segs, scorer, device_phrase=False, **kw)
+        self.pscorer = to_port(scorer)
+        self.jq = JaxDeviceQuery(flt, segs.jax, scorer, device_phrase=False, **kw)
         self.plan = self.jq.plan(0)
         (self.jpools, self.jrows, self.gbits, self.jam, self.jas, self.jalive,
          self.javgdl, self.jleafmin, self.jdargs, self.dstat) = self.jq._device_inputs(self.plan)
@@ -565,7 +583,8 @@ class Inputs:
             for d in self.jdargs
         )
         p = self.plan
-        self.kw = dict(tree=p.tree, gbits=self.gbits, scorer=scorer, num_leaves=p.num_leaves)
+        self.jkw = dict(tree=p.tree, gbits=self.gbits, scorer=scorer, num_leaves=p.num_leaves)
+        self.kw = dict(self.jkw, scorer=self.pscorer)
         self.nreal = np.asarray([g.real_rows * 128 for g in p.groups], np.int32)
 
 
@@ -603,7 +622,7 @@ def _body_group_contrib(r):
         wd, ws, wm, wdl = jex._group_contrib(pool, *rs[:4], bd, bf, bn, r.javgdl[gi],
                                              r.scorer, want_dl=True)
         gd, gs, gm, gdl = tex.group_contrib(r.pools[gi], *r.rows[gi][:4], r.gbits[gi],
-                                            r.avgdl[gi], r.scorer, want_dl=True)
+                                            r.avgdl[gi], r.pscorer, want_dl=True)
         np.testing.assert_array_equal(gd[0].numpy(), np.asarray(wd))
         np.testing.assert_array_equal(gm[0].numpy(), np.asarray(wm))
         np.testing.assert_array_equal(gdl[0].numpy(), np.broadcast_to(np.asarray(wdl), gdl[0].shape))
@@ -618,7 +637,7 @@ def _body_dense_contrib(r):
         for keep in (None, keep_np):
             ws, wm = jex._dense_contrib(jd, st, r.scorer, nd, jnp,
                                         keep=None if keep is None else jnp.asarray(keep))
-            gs, gm = tex.dense_contrib(pd, st, r.scorer,
+            gs, gm = tex.dense_contrib(pd, st, r.pscorer,
                                        keep=None if keep is None else torch.from_numpy(keep)[None])
             np.testing.assert_array_equal(gm[0].numpy(), np.asarray(wm))
             np.testing.assert_allclose(gs[0].numpy(), np.asarray(ws), rtol=1e-6, atol=0.0)
@@ -633,7 +652,7 @@ def _body_segment_body(r):
         tam, tas = _t(am)[None], _t(asc)[None]
     wm, ws = jex.segment_body(
         r.jpools, r.jrows, r.javgdl, r.jleafmin, am, asc, r.jalive, nd=nd,
-        dense_args=r.jdargs, dense_static=r.dstat, **r.kw,
+        dense_args=r.jdargs, dense_static=r.dstat, **r.jkw,
     )
     gm, gs = tex.segment_body(
         r.pools, r.rows, r.avgdl, r.leafmin, tam, tas, r.alive, nd=nd,
@@ -648,7 +667,7 @@ def _body_wand_body(r):
     for mode in ("exact", "strict", "approx"):
         want = jex.wand_body(r.jpools, r.jrows, r.javgdl, r.jleafmin, r.jalive, k=10,
                              nd=nd, sample=2, mode=mode, dense_args=r.jdargs,
-                             dense_static=r.dstat, **r.kw)
+                             dense_static=r.dstat, **r.jkw)
         got = tex.wand_body(r.pools, r.rows, r.avgdl, r.leafmin, r.alive, k=10, nd=nd,
                             sample=2, mode=mode, dense_args=r.dargs,
                             dense_static=r.dstat, **r.kw)
@@ -659,7 +678,7 @@ def _body_decode_flat(r):
     from iresearch_tpu.exec import candidates as jc
 
     want = jc.decode_flat(r.jpools, r.jrows, r.javgdl, r.gbits, r.scorer)
-    got = tc.decode_flat(r.pools, r.rows, r.avgdl, r.gbits, r.scorer, decode=tex.decode_rows)
+    got = tc.decode_flat(r.pools, r.rows, r.avgdl, r.gbits, r.pscorer, decode=tex.decode_rows)
     for g, w in zip(got, want):
         if g.dtype == torch.float32:
             np.testing.assert_allclose(g[0].numpy(), np.asarray(w), rtol=1e-6, atol=0.0)
@@ -674,7 +693,7 @@ def _body_direct_topk(r):
         want = jc.direct_topk(r.jpools, r.jrows, r.javgdl, r.jalive, gbits=r.gbits,
                               scorer=r.scorer, k=k)
         got = tc.direct_topk(r.pools, r.rows, r.avgdl, r.alive, gbits=r.gbits,
-                             scorer=r.scorer, k=k, decode=tex.decode_rows)
+                             scorer=r.pscorer, k=k, decode=tex.decode_rows)
         _same_topk(got, want)
 
 
@@ -682,7 +701,7 @@ def _body_sorted_topk(r):
     from iresearch_tpu.exec import candidates as jc
 
     for k in (1, 10):
-        want = jc.sorted_topk(r.jpools, r.jrows, r.javgdl, r.jleafmin, r.jalive, k=k, **r.kw)
+        want = jc.sorted_topk(r.jpools, r.jrows, r.javgdl, r.jleafmin, r.jalive, k=k, **r.jkw)
         got = tc.sorted_topk(r.pools, r.rows, r.avgdl, r.leafmin, r.alive, k=k,
                              decode=tex.decode_rows, **r.kw)
         _same_topk(got, want)
@@ -700,7 +719,7 @@ def _body_dense_probe(r):
         for use_dl in (False, True):
             ws, wh = jc.dense_probe(jd, st, jnp.asarray(cdocs), r.scorer, jnp,
                                     dl=jnp.asarray(dl) if use_dl else None)
-            gs, gh = tc.dense_probe(pd, st, torch.from_numpy(cdocs)[None], r.scorer,
+            gs, gh = tc.dense_probe(pd, st, torch.from_numpy(cdocs)[None], r.pscorer,
                                     dl=torch.from_numpy(dl)[None] if use_dl else None)
             np.testing.assert_array_equal(gh[0].numpy(), np.asarray(wh))
             np.testing.assert_allclose(gs[0].numpy(), np.asarray(ws), rtol=1e-6, atol=0.0)
@@ -715,7 +734,7 @@ def _body_join_topk(r):
     for k in (1, 10):
         want = jc.join_topk(r.jpools, r.jrows, r.javgdl, r.jleafmin, r.jalive,
                             jnp.asarray(r.nreal), k=k, driver_gi=p.driver_gi,
-                            group_leaf=gl, dense_args=r.jdargs, dense_static=r.dstat, **r.kw)
+                            group_leaf=gl, dense_args=r.jdargs, dense_static=r.dstat, **r.jkw)
         got = tc.join_topk(r.pools, r.rows, r.avgdl, r.leafmin, r.alive,
                            torch.from_numpy(r.nreal)[None], k=k, driver_gi=p.driver_gi,
                            group_leaf=gl, decode=tex.decode_rows, dense_args=r.dargs,
@@ -745,7 +764,7 @@ def _body_gridmix_topk(r):
     assert p.exec_mode == "gridmix"
     for k in (1, 10):
         want = jc.gridmix_topk(r.jpools, r.jrows, r.javgdl, r.jleafmin, None, k=k,
-                               nd=p.nd_pad, dense_args=r.jdargs, dense_static=r.dstat, **r.kw)
+                               nd=p.nd_pad, dense_args=r.jdargs, dense_static=r.dstat, **r.jkw)
         got = tc.gridmix_topk(r.pools, r.rows, r.avgdl, r.leafmin, None, k=k,
                               nd=p.nd_pad, decode=tex.decode_rows, dense_args=r.dargs,
                               dense_static=r.dstat, **r.kw)
@@ -763,7 +782,7 @@ def _body_wand_theta(r):
     for mode in ("direct", "sort"):
         for wand_mode in ("exact", "strict"):
             want = jc.wand_theta(r.jpools, jsorted, r.javgdl, r.jleafmin, None, k=5,
-                                 sample=2, mode=mode, wand_mode=wand_mode, **r.kw)
+                                 sample=2, mode=mode, wand_mode=wand_mode, **r.jkw)
             got = tc.wand_theta(r.pools, tsorted, r.avgdl, r.leafmin, None, k=5,
                                 sample=2, mode=mode, decode=tex.decode_rows,
                                 wand_mode=wand_mode, **r.kw)
@@ -775,10 +794,11 @@ def _body_candidate_body(r):
 
     for mode in ("direct", "sort"):
         for wand_mode in ("exact", "strict", "approx"):
-            kw = dict(k=10, mode=mode, wand=True, sample=2, wand_mode=wand_mode, **r.kw)
-            want = jc.candidate_body(r.jpools, r.jrows, r.javgdl, r.jleafmin, r.jalive, **kw)
+            kw = dict(k=10, mode=mode, wand=True, sample=2, wand_mode=wand_mode)
+            want = jc.candidate_body(r.jpools, r.jrows, r.javgdl, r.jleafmin, r.jalive,
+                                     **kw, **r.jkw)
             got = tc.candidate_body(r.pools, r.rows, r.avgdl, r.leafmin, r.alive,
-                                    decode=tex.decode_rows, **kw)
+                                    decode=tex.decode_rows, **kw, **r.kw)
             _same_topk(got, want)
 
 
@@ -792,10 +812,13 @@ def _body_dslice_topk(r):
     want = jc.dslice_topk(r.jpools[0], jnp.asarray(starts), jnp.int32(g.real_rows),
                           jnp.float32(g.weight[0]), r.javgdl[0], r.jalive,
                           gbits=r.gbits[0], scorer=r.scorer, k=10, R=R)
-    sr = r.jq.prepared.segments[0]
-    tier, fn, args, kwargs = group_call(sr, [p], 10, r.scorer, CPU, sky_specs=[None],
-                                        sky_M=None, wand_sample=16, wand_mode="exact",
-                                        single=True)
+    pq = tex.DeviceQuery(to_port(r.flt), r.segs.port, r.pscorer, device_phrase=False,
+                         device=CPU, **r.dq_kw)
+    pp = pq.plan(0)
+    assert pp.exec_mode == "dslice"
+    tier, fn, args, kwargs = group_call(r.segs.port[0], [pp], 10, r.pscorer, CPU,
+                                        sky_specs=[None], sky_M=None, wand_sample=16,
+                                        wand_mode="exact", single=True)
     assert tier == "dslice" and kwargs["R"] == R
     _same_topk(fn(tex.PLAIN, *args, **kwargs), want)
 
@@ -843,9 +866,9 @@ def test_body_matches_jax(request, knobs, name):
     body, reader_name, flt, plan_knobs, dq_kw = BODIES[name]
     reader = request.getfixturevalue(reader_name)
     if reader_name == "bench20k":
-        sr, cats = reader
-        segs, flt = [sr], _bench_filter(name, cats)
+        segs, cats = reader
+        flt = _bench_filter(name, cats)
     else:
-        segs = list(reader.segments)
+        segs = reader
     knobs(**plan_knobs)
     body(Inputs(flt, segs, **dq_kw))

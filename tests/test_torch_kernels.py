@@ -1,6 +1,8 @@
 """The three kernels' plain PyTorch versions vs the JAX package's Pallas
 kernels (interpret mode on the CPU) and XLA twins, and the kernels
-themselves vs their plain versions on the card (``cuda`` marker)."""
+themselves vs their plain versions on the card (``cuda`` marker). Scorers
+are built with the JAX package and handed to the port through
+``to_port``."""
 
 import numpy as np
 import pytest
@@ -9,12 +11,13 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from iresearch_tpu.formats.bitpack import pack_blocks  # noqa: E402
-from iresearch_tpu.formats.spec import BLOCK  # noqa: E402
 from iresearch_tpu.search.scorers import BM25, TFIDF, BoostScore  # noqa: E402
+from iresearch_tpu_torch.formats.bitpack import BITS, pack_blocks  # noqa: E402
+from iresearch_tpu_torch.formats.spec import BLOCK  # noqa: E402
 from iresearch_tpu_torch.ops import decode as dc  # noqa: E402
 from iresearch_tpu_torch.ops import dense_scan as ds  # noqa: E402
 from iresearch_tpu_torch.ops import dma_gather as dg  # noqa: E402
+from test_torch_carry import to_port  # noqa: E402
 
 NDROWS = 64
 Q = 3
@@ -42,9 +45,10 @@ def _k1_inputs(seed, span_bits, nrows=2 * NDROWS):
     return pools, starts, ws, norms, 47.3
 
 
-def _k1_port(pools, starts, ws, norms, avgdl, **kw):
+def _k1_port(pools, starts, ws, norms, avgdl, *, scorer, **kw):
     m, a = ds.dense_scan_rowmax(
-        [_t(p) for p in pools], _t(starts), _t(ws), _t(norms), avgdl, **kw
+        [_t(p) for p in pools], _t(starts), _t(ws), _t(norms), avgdl,
+        scorer=to_port(scorer), **kw
     )
     return m.numpy(), a.numpy()
 
@@ -117,7 +121,7 @@ def test_score_rows_matches_jax_rescore():
     rows = np.random.default_rng(13).integers(0, NDROWS, size=(Q, 16)).astype(np.int32)
     got = ds.score_rows(
         [_t(p) for p in pools], _t(starts), _t(ws), _t(norms.astype(np.uint16)),
-        torch.tensor(np.float32(avgdl)), _t(rows), scorer=BM25(),
+        torch.tensor(np.float32(avgdl)), _t(rows), scorer=to_port(BM25()),
         span_bits=span_bits,
     ).numpy()
     for q in range(Q):
@@ -203,7 +207,7 @@ def test_rowmax_kernel_matches_plain_on_card(cuda_device, scorer, mode):
     pools, starts, ws, norms, avgdl = _k1_inputs(31, (8, 4, 16))
     args = ([_t(p).to(cuda_device) for p in pools], _t(starts).to(cuda_device),
             _t(ws).to(cuda_device), _t(norms.astype(np.uint16)).to(cuda_device), avgdl)
-    kw = dict(scorer=scorer, span_bits=(8, 4, 16), conj=conj, mm=mm)
+    kw = dict(scorer=to_port(scorer), span_bits=(8, 4, 16), conj=conj, mm=mm)
     got = [t.cpu().numpy() for t in ds.dense_scan_rowmax(*args, **kw)]
     want = [t.cpu().numpy() for t in ds.dense_scan_rowmax_ref(*args, **kw)]
     if isinstance(scorer, BM25):
@@ -228,3 +232,91 @@ def test_row_slices_and_decode_kernels_match_plain_on_card(cuda_device):
     kd, kf = dc.decode_rows(*a, bd=16, bf=2)
     pd, pf = dc.decode_rows_ref(*a, bd=16, bf=2)
     assert torch.equal(kd, pd) and torch.equal(kf, pf)
+
+
+# K1 on the card against its plain version. Each case: (span bits, Q,
+# ndrows, conj, mm, spans). Q = 37 is no multiple of the kernel's query
+# chunk (16) or of its queries in flight (4); ndrows = 203 and 61 are no
+# multiple of its row tile (8). "dense"/"sparse" set the share of non-zero
+# lanes; "zero_span" makes every third span all zero; "ties" gives every
+# hit lane of a span one frequency and every lane of a row one doc length,
+# so hit lanes tie; "negative" sets the top bit of some 32-bit lanes
+# (f < 0, the plain version's f32 sum decides the hit).
+K1_CASES = {
+    **{f"s1_b{b}": ((b,), 37, 203, False, 1, "dense") for b in BITS},
+    "mix_or": ((4, 2), 37, 203, False, 1, "dense"),
+    "mix_and": ((4, 2), 37, 203, True, 1, "dense"),
+    "s2_sparse": ((4, 2), 19, 203, False, 1, "sparse"),
+    "s2_and_sparse": ((8, 1), 19, 61, True, 1, "sparse"),
+    "s4_mm2": ((8, 4, 16, 2), 37, 203, False, 2, "dense"),
+    "s4_mm3": ((8, 4, 16, 2), 37, 61, False, 3, "dense"),
+    "s4_and_mm2": ((8, 4, 16, 2), 5, 61, True, 2, "dense"),
+    "s4_ties": ((4, 4, 8, 2), 21, 61, False, 1, "ties"),
+    "s17_or": (tuple(BITS[i % 6] for i in range(17)), 9, 61, False, 1, "zero_span"),
+    "s17_and": (tuple(BITS[i % 6] for i in range(17)), 9, 61, True, 1, "full"),
+    "s17_mm3": (tuple(BITS[i % 6] for i in range(17)), 9, 61, False, 3, "sparse"),
+    "s64_or": (tuple(BITS[i % 6] for i in range(64)), 6, 61, False, 1, "sparse"),
+    "s64_mm3": (tuple(BITS[i % 6] for i in range(64)), 6, 61, False, 3, "zero_span"),
+    "b32_negative": ((32, 8), 21, 61, False, 1, "negative"),
+}
+K1_SCORERS = {
+    "bm25": BM25(), "bm25_k09_b04": BM25(k=0.9, b=0.4), "bm15": BM25(b=0.0),
+    "tfidf": TFIDF(), "tfidf_nonorm": TFIDF(with_norms=False), "boost": BoostScore(),
+}
+# sqrt of a negative frequency is NaN in both versions; no row max is defined
+K1_PARAMS = [
+    (case, sc) for case in sorted(K1_CASES) for sc in sorted(K1_SCORERS)
+    if not (case == "b32_negative" and sc.startswith("tfidf"))
+]
+
+
+def _k1_card_inputs(case, seed):
+    span_bits, q, ndrows, _conj, _mm, kind = K1_CASES[case]
+    rng = np.random.default_rng(seed)
+    nrows = ndrows + 40
+    share = {"dense": 0.6, "sparse": 0.03, "zero_span": 0.5, "full": 0.97,
+             "ties": 0.5, "negative": 0.5}[kind]
+    pools = []
+    for s, b in enumerate(span_bits):
+        f = rng.integers(1, 1 << min(b, 6), size=(nrows, BLOCK), dtype=np.uint64)
+        f[rng.random(f.shape) >= share] = 0
+        f[rng.integers(0, nrows, size=nrows // 5)] = 0  # all-zero rows
+        if kind == "zero_span" and s % 3 == 2:
+            f[:] = 0
+        if kind == "ties":
+            f = np.where(f > 0, min(3, (1 << b) - 1), 0)
+        if kind == "negative" and b == 32:
+            neg = rng.random(f.shape) < 0.1
+            f[neg] = rng.integers(2**31, 2**32, size=int(neg.sum()), dtype=np.uint64)
+        pools.append(pack_blocks(f.astype(np.uint32), b))
+    starts = rng.integers(0, nrows - ndrows + 1, size=(q, len(span_bits))).astype(np.int32)
+    ws = rng.uniform(0.5, 3.0, size=(q, len(span_bits))).astype(np.float32)
+    if kind == "ties":
+        norms = np.repeat(rng.integers(1, 300, size=(ndrows, 1)), BLOCK, axis=1)
+    else:
+        norms = rng.integers(1, 300, size=(ndrows, BLOCK))
+    return pools, starts, ws, norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,scorer", K1_PARAMS)
+@pytest.mark.parametrize("norms_dtype", [np.uint16, np.float32], ids=["u16", "f32"])
+def test_rowmax_kernel_cases_match_plain_on_card(cuda_device, case, scorer, norms_dtype):
+    """K1 vs its plain version on every hit rule, span count, width class
+    and score kind: BM25 (every setting) and boost bit for bit, max and
+    argmax, -inf rows included; TFIDF (rsqrtf) to rtol 1e-6."""
+    span_bits, _q, _n, conj, mm, _kind = K1_CASES[case]
+    pools, starts, ws, norms = _k1_card_inputs(case, 51)
+    dev = cuda_device
+    args = ([_t(p).to(dev) for p in pools], _t(starts).to(dev), _t(ws).to(dev),
+            _t(norms.astype(norms_dtype)).to(dev), 41.7)
+    kw = dict(scorer=to_port(K1_SCORERS[scorer]), span_bits=span_bits, conj=conj, mm=mm)
+    got = [t.cpu().numpy() for t in ds.dense_scan_rowmax(*args, **kw)]
+    want = [t.cpu().numpy() for t in ds.dense_scan_rowmax_ref(*args, **kw)]
+    if scorer.startswith("tfidf"):
+        _check_rowmax(got, want[0], want[1], rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    if case.startswith("mix") or case == "s4_mm2":
+        assert np.isfinite(want[0]).any() and not np.isfinite(want[0]).all()

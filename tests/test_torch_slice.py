@@ -2,7 +2,9 @@
 CPU: the bench corpus law at 100k docs, the 400-query bench mix, BM25
 top-10 with wand=True (the skyline, dslice and fused-scan tiers), plus
 one query each of the join, sort, gridmix and aux tiers, and every tier
-with jax blocked."""
+in a process that imports neither jax nor the JAX package. The JAX
+package builds each segment; the port gets it through ``carry`` and its
+filters and scorers through ``to_port`` (``tests/test_torch_carry.py``)."""
 
 import os
 import subprocess
@@ -18,6 +20,7 @@ from iresearch_tpu.search import filters as F  # noqa: E402
 from iresearch_tpu.search.scorers import BM25  # noqa: E402
 from iresearch_tpu_torch import bench_mix  # noqa: E402
 from iresearch_tpu_torch.exec.batch import QueryBatch  # noqa: E402
+from test_torch_carry import carry, jax_bench_reader, to_jax, to_port  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 10
@@ -25,14 +28,20 @@ K = 10
 
 @pytest.fixture(scope="module")
 def bench_reader():
-    from iresearch_tpu.index.segment import SegmentReader
-
-    return SegmentReader("slice", bench_mix.build_segment_data(100_000))
+    """(JAX reader, the port's carried reader) of the 100k-doc segment."""
+    sr = jax_bench_reader("slice", 100_000)
+    return sr, carry(sr)
 
 
 @pytest.fixture(scope="module")
 def mix(bench_reader):
-    return bench_mix.task_mix(bench_reader)
+    """The bench mix as (category, JAX filter)."""
+    return [(c, to_jax(f)) for c, f in bench_mix.task_mix(bench_reader[1])]
+
+
+def _port_batch(filters, psr, **kw):
+    return QueryBatch([to_port(f) for f in filters], [psr], to_port(BM25()),
+                      device="cpu", **kw)
 
 
 def _canonical(vals, docs):
@@ -45,10 +54,10 @@ def _canonical(vals, docs):
 def test_slice_matches_jax(bench_reader, mix):
     from iresearch_tpu.exec.batch import QueryBatch as JaxQueryBatch
 
+    sr, psr = bench_reader
     filters = [f for _c, f in mix]
-    want = JaxQueryBatch(filters, [bench_reader], BM25(), wand=True).prepare(0, K).run()
-    prep = QueryBatch(filters, [bench_reader], BM25(), wand=True,
-                      device=torch.device("cpu")).prepare(0, K)
+    want = JaxQueryBatch(filters, [sr], BM25(), wand=True).prepare(0, K).run()
+    prep = _port_batch(filters, psr, wand=True).prepare(0, K)
     got = prep.run()
     assert len(got) == len(want) == 400
     for qi, ((gv, gd), (wv, wd)) in enumerate(zip(got, want)):
@@ -70,15 +79,14 @@ def test_slice_with_deletes_matches_jax():
     """A snapshot with deleted docs: the dslice tier masks them with the
     alive mask, the grid tiers find them zeroed in the dense cache."""
     from iresearch_tpu.exec.batch import QueryBatch as JaxQueryBatch
-    from iresearch_tpu.index.segment import SegmentReader
 
-    data = bench_mix.build_segment_data(30_000)
     dead = np.random.default_rng(8).choice(30_000, size=3_000, replace=False)
-    sr = SegmentReader("deletes", data, masked_docs=dead)
-    mix = bench_mix.task_mix(sr)[::4]
-    filters = [f for _c, f in mix]
+    sr = jax_bench_reader("deletes", 30_000, masked_docs=dead)
+    psr = carry(sr)
+    assert psr.has_deletes
+    filters = [to_jax(f) for _c, f in bench_mix.task_mix(psr)[::4]]
     want = JaxQueryBatch(filters, [sr], BM25(), wand=True).prepare(0, K).run()
-    prep = QueryBatch(filters, [sr], BM25(), wand=True, device="cpu").prepare(0, K)
+    prep = _port_batch(filters, psr, wand=True).prepare(0, K)
     assert "dslice" in {c[0] for c in prep.calls}
     for (gv, gd), (wv, wd) in zip(prep.run(), want):
         wv, wd = _canonical(np.asarray(wv), np.asarray(wd))
@@ -90,8 +98,7 @@ def test_slice_with_deletes_matches_jax():
 def test_plain_run_equals_kernel_run_on_cpu(bench_reader, mix):
     """On CPU tensors every wrapper takes its plain version, so both runs
     are the same computation."""
-    prep = QueryBatch([f for _c, f in mix[::20]], [bench_reader], BM25(),
-                      wand=True, device="cpu").prepare(0, K)
+    prep = _port_batch([f for _c, f in mix[::20]], bench_reader[1], wand=True).prepare(0, K)
     for ((v1, d1), _q1), ((v2, d2), _q2) in zip(prep.run_grouped(), prep.run_grouped(plain=True)):
         assert torch.equal(v1, v2) and torch.equal(d1, d2)
 
@@ -116,37 +123,47 @@ def test_new_tier_matches_jax(bench_reader, tier):
     from iresearch_tpu.search.host_eval import HostQuery
     from tests.topk_util import assert_topk_equiv
 
-    mix = bench_mix.task_mix(bench_reader)
+    sr, psr = bench_reader
+    mix = [(c, to_jax(f)) for c, f in bench_mix.task_mix(psr)]
     flt = _new_tiers(mix)[tier]
-    prep = QueryBatch([flt], [bench_reader], BM25(), wand=True, device="cpu").prepare(0, K)
+    prep = _port_batch([flt], psr, wand=True).prepare(0, K)
     assert [c[0] for c in prep.calls] == [tier]
     (gv, gd), = prep.run()
     gv, gd = gv.numpy(), gd.numpy()
-    (wv, wd), = JaxQueryBatch([flt], [bench_reader], BM25(), wand=True).prepare(0, K).run()
+    (wv, wd), = JaxQueryBatch([flt], [sr], BM25(), wand=True).prepare(0, K).run()
     wv, wd = np.asarray(wv), np.asarray(wd)
     fin = np.isfinite(gv)
     np.testing.assert_array_equal(fin, np.isfinite(wv))
     np.testing.assert_allclose(np.sort(gv[fin]), np.sort(wv[fin]), rtol=1e-5, atol=1e-6)
     got = [(int(d), float(v)) for d, v in zip(gd[fin], gv[fin])]
     assert_topk_equiv(got, [(int(d), float(v)) for d, v in zip(wd[fin], wv[fin])])
-    assert_topk_equiv(got, HostQuery(flt, [bench_reader], BM25()).top_k(K))
+    assert_topk_equiv(got, HostQuery(flt, [sr], BM25()).top_k(K))
 
 
 def test_query_batch_needs_a_device(bench_reader, mix):
-    with pytest.raises(TypeError):
-        QueryBatch([mix[0][1]], [bench_reader], BM25())
+    """Without a ``device`` the batch runs on the card, and raises where
+    there is none; it takes none of the JAX package's objects."""
+    sr, psr = bench_reader
+    flt, scorer = to_port(mix[0][1]), to_port(BM25())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            QueryBatch([flt], [psr], scorer)
+    with pytest.raises(TypeError, match="SegmentReader"):
+        QueryBatch([flt], [sr], scorer, device="cpu")
+    with pytest.raises(TypeError, match="Scorer"):
+        QueryBatch([flt], [psr], BM25(), device="cpu")
+    with pytest.raises(TypeError, match="Filter"):
+        QueryBatch([mix[0][1]], [psr], scorer, device="cpu")
 
 
-_NO_JAX = r"""
+_SLICE = r"""
 import sys
-sys.modules["jax"] = None
 import torch
-from iresearch_tpu.index.segment import SegmentReader
-from iresearch_tpu.search.scorers import BM25
-import iresearch_tpu_torch
 from iresearch_tpu_torch import bench_mix
 from iresearch_tpu_torch.exec.batch import QueryBatch
 from iresearch_tpu_torch.exec.executor import DeviceQuery
+from iresearch_tpu_torch.index.segment import SegmentReader
+from iresearch_tpu_torch.search.scorers import BM25
 
 sr = SegmentReader("tiny", bench_mix.build_segment_data(5000))
 mix = bench_mix.task_mix(sr)
@@ -178,50 +195,33 @@ breadth = [DeviceQuery(f, [sr], BM25(), wand=w, device="cpu")
 assert all(q.execute_segment_async(0, 10)[0].shape == (10,) for q in breadth)
 print("new tiers", [c[0] for c in prep.calls])
 
-loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-assert sys.modules["jax"] is None and loaded == ["jax"], loaded
-assert "iresearch_tpu.exec.executor" not in sys.modules
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "iresearch_tpu"))
+assert loaded == sorted(BLOCKED), loaded[:8]
+print("imports ok")
 """
 
 
-_JAX_INSTALLED = r"""
-import sys
-from iresearch_tpu.index.segment import SegmentReader
-from iresearch_tpu.search.scorers import BM25
-from iresearch_tpu_torch import bench_mix
-from iresearch_tpu_torch.exec.executor import DeviceQuery
-
-sr = SegmentReader("tiny", bench_mix.build_segment_data(3000))
-for _tier, flt, _knobs in bench_mix.tier_tasks(sr):
-    DeviceQuery(flt, [sr], BM25(), wand=True, device_phrase=False,
-                device="cpu").execute_segment(0, 10)
-loaded = [m for m in sys.modules if m.split(".")[0] == "jax"]
-assert not loaded and "iresearch_tpu.exec.executor" not in sys.modules, loaded[:5]
-import iresearch_tpu.exec as ex  # the JAX package still imports on demand
-assert ex.DeviceQuery.__module__ == "iresearch_tpu.exec.executor"
-print("lazy")
-"""
+def _run_slice(blocked):
+    """The slice above in a fresh interpreter with ``blocked`` modules
+    made unimportable (``sys.modules[name] = None``)."""
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))
+    head = f"import sys\nBLOCKED = {blocked!r}\nfor m in BLOCKED:\n    sys.modules[m] = None\n"
+    r = subprocess.run(
+        [sys.executable, "-c", head + _SLICE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "tiers" in r.stdout and "new tiers" in r.stdout and "imports ok" in r.stdout
 
 
 def test_port_leaves_installed_jax_unimported():
-    """Where jax is installed, the port still imports none of it; the JAX
-    package's ``iresearch_tpu.exec`` names load when first asked for."""
-    path = os.environ.get("PYTHONPATH")
-    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))
-    r = subprocess.run(
-        [sys.executable, "-c", _JAX_INSTALLED], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=300,
-    )
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert "lazy" in r.stdout
+    """Where jax and the JAX package are installed, a slice of the mix, the
+    breadth categories and the tier batch leaves both unimported: no
+    ``jax``, no ``iresearch_tpu`` and no ``iresearch_tpu.*`` module."""
+    _run_slice([])
 
 
 def test_port_runs_without_jax():
-    path = os.environ.get("PYTHONPATH")
-    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))
-    r = subprocess.run(
-        [sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=300,
-    )
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert "tiers" in r.stdout and "new tiers" in r.stdout
+    """The same slice where neither jax nor the JAX package can import."""
+    _run_slice(["jax", "iresearch_tpu"])
