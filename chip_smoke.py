@@ -9,14 +9,24 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
 2. builds the kernels (nvcc, first use) and prints the build time;
 3. builds the 5M-doc segment (or loads it from ``.bench_cache/``);
 4. uploads the segment state and prints its device bytes;
-5. holds K1, K2 and K3 against their plain PyTorch versions on the card,
-   on the real pools, starts and rows of the mix's plans (BM25 bit for
-   bit; TFIDF and boost scoring on a small random grid to rtol 1e-6), and
-   times each beside its plain version with CUDA events, beside its bound
-   (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
-   its f32 operations over 67 TFLOP/s, counted from this run's inputs)
-   and, for K2, beside one PyTorch call of the same function
-   (``index_select`` per pool, ``library_ms``; the port never calls it);
+5. holds K1, K2 and K3 (its plain form and its scored form,
+   ``decode_score_rows``) against their plain PyTorch versions on the
+   card, on the real pools, starts and rows of the mix's plans (BM25 bit
+   for bit; TFIDF and boost scoring on a small random grid to rtol 1e-6),
+   and times them. K1 is timed between CUDA events around eager calls
+   (its device work outlasts the host's enqueue). K2, K3 and
+   ``index_select`` take microseconds on the device and tens of
+   microseconds to enqueue, so their ``ms`` is device time: the call list
+   captured into one CUDA graph and replayed between events.
+   ``enqueue_ms`` is the host's time for the same eager calls (no
+   synchronise inside), ``launch_floor_ms`` the device time of one launch
+   of an empty kernel under the same graph timing, ``bound_ms`` the
+   larger of the bytes the call must move over 3.35 TB/s and its f32
+   operations over 67 TFLOP/s, counted from this run's inputs, and
+   ``target_ms`` the larger of ``bound_ms`` and the call list's launches
+   times the floor. ``plain_ms`` is the plain version's eager time between
+   events; ``library_ms``, for K2, one PyTorch call of the same function
+   (``index_select`` per pool; the port never calls it);
 6. runs the main path once with every launch count reset before it, and
    fails unless each kernel launched; compares all 400 results with the
    plain-torch run of the same batch (docs exact, scores rtol 1e-5) and
@@ -28,21 +38,28 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    query per tier that decodes postings rows (fold, aux, wand, direct,
    sort, join, gridmix; planner knobs, where a tier needs them, set for
    that query's plan alone and printed). Each is run with the launch
-   counts reset before it and fails unless K3 (every batch tier) or the
-   category's kernels launched; each result passes the exactness gate
-   against the plain-torch run and against ``HostQuery``; K1 is held bit
-   for bit against its plain version on every fused-scan category (four
-   spans, min_match 2 among them), and K3 on the rows that a fold group
-   and a join group really gather, and timed; synchronised ms per query
-   are printed for every category and tier.
+   counts reset before it and fails unless K3's scored form (every batch
+   tier), K3's plain form (the join's probe) or the category's kernels
+   launched; each result passes the exactness gate against the
+   plain-torch run and against ``HostQuery``; K1 is held bit for bit
+   against its plain version on every fused-scan category (four spans,
+   min_match 2 among them), and both forms of K3 on the rows that a fold
+   group and a join group really gather, and timed as in phase 5;
+   synchronised ms per query are printed for every category and tier.
 
 The port and this script import nothing of ``jax`` or of the JAX package
 ``iresearch_tpu``; the run fails if either was loaded.
 
-It prints one JSON line of per-kernel results, then, as its last line,
-``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
-not 0 and the last line is never printed. Usage: ``python3
-chip_smoke.py`` (``--docs N`` runs a smaller corpus while debugging).
+It prints one JSON line of per-kernel results (``launches`` counts the
+400-query pass of phase 6 and the tier batch of phase 8, each read with
+the counts reset just before), then, as its last line, ``{"ok": true,
+"device": {...}}``. Any failure raises: the exit code is not 0 and the
+last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
+N`` runs a smaller corpus while debugging; ``--profile FILE`` adds a
+torch.profiler breakdown with the kernels' in-pass device durations;
+``--kernel-times`` stops after the kernels' checks and timings of phases
+5 and 8, and also runs from a copy of this script in an older tree of
+the port, whose kernels it then times the same way).
 """
 
 from __future__ import annotations
@@ -63,12 +80,15 @@ REPLACES = {
     "dense_scan_rowmax": "iresearch_tpu/ops/dense_scan.py:199",
     "dma_row_slices": "iresearch_tpu/ops/dma_gather.py:82",
     "decode_rows": "iresearch_tpu/ops/decode.py:100",
+    "decode_score_rows": "iresearch_tpu/ops/decode.py:100",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PER_CATEGORY_ORACLE = 5
 PASSES = 20  # timed batched passes
 SINGLE_REPS = 20  # timed runs per breadth category and tier (bench.py's 20)
+GRAPH_INNER = 10  # copies of a call list in one captured graph
+GRAPH_REPLAYS = 20  # timed replays of that graph
 
 
 def phase(name, t0):
@@ -90,12 +110,101 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(torch, fn):
+    """Device ms per run of ``fn``: GRAPH_INNER runs captured into one CUDA
+    graph (the kernels' foreign launches go to the capturing stream, their
+    outputs come from the graph's pool), replayed GRAPH_REPLAYS times
+    between CUDA events. No host work lies between the launches."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_INNER):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (GRAPH_REPLAYS * GRAPH_INNER)
+
+
+def enqueue_ms(torch, fn, iters=200, warmup=3):
+    """Host ms per run of ``fn`` to enqueue its work: no synchronise
+    inside the timed loop, one after it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    el = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    return el * 1e3 / iters
+
+
+def launch_floor(torch, dev):
+    """Device ms of one launch of the library's empty kernel under
+    ``graph_ms``; None where the library has none (an older tree)."""
+    from iresearch_tpu_torch.kernels import build as kb
+
+    if not hasattr(kb, "launch_noop"):
+        return None
+    return graph_ms(torch, lambda: kb.launch_noop(torch.cuda.current_stream(dev).cuda_stream))
+
+
+def timed(torch, kernel, plain, n_launches, nbytes, flops, floor, library=None):
+    """One kernel's timing keys for a call list (see the module note)."""
+    bms, by = bound(nbytes, flops)
+    return dict(
+        ms=graph_ms(torch, kernel), enqueue_ms=enqueue_ms(torch, kernel),
+        plain_ms=cuda_ms(torch, plain),
+        library_ms=None if library is None else graph_ms(torch, library),
+        bound_ms=bms, bound_by=by, launch_floor_ms=floor,
+        target_ms=bms if floor is None else max(bms, n_launches * floor),
+    )
+
+
 def bound(nbytes, flops=0.0):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the f32 operations over the f32 peak."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = flops / F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def record_calls(kernels, fn, args, kw):
+    """Run ``fn`` on the kernel set with every kernel wrapped to note its
+    arguments: {field: [(args, kwargs), ...]} of the calls it really made."""
+    rec = {name: [] for name in kernels._fields}
+
+    def noting(name, kernel):
+        def call(*a, **k):
+            rec[name].append((a, k))
+            return kernel(*a, **k)
+        return call
+
+    fn(kernels._replace(**{n: noting(n, getattr(kernels, n)) for n in kernels._fields}),
+       *args, **kw)
+    return rec
+
+
+def k3_lists(rec):
+    """(plain, scored) K3 call lists of recorded calls: every decode as
+    (5 arguments, widths), the scored form's among them, and the scored
+    form's own calls."""
+    scored = rec.get("decode_score", [])
+    plain = [(a[:5], dict(bd=k["bd"], bf=k["bf"])) for a, k in scored] + rec["decode"]
+    return plain, scored
 
 
 def k1_work(torch, run):
@@ -140,6 +249,24 @@ def k3_work(a, bd, bf):
     return ud * (16 * bd + 4) + uf * 16 * bf + 8 * n + n * 128 * 8
 
 
+def k3_score_work(a, kw, docs):
+    """(bytes, f32 ops) of the scored form for one call: K3's bytes with
+    scores in the freqs' place, plus each distinct norm row (or each
+    distinct ``norms`` entry the decoded docs reach) and the weights read
+    once, the match flags (and dl on request) written once; 6 f32
+    operations a lane for BM25's expression."""
+    rows_n, norms = a[6], a[7]
+    n = a[3].shape[0]
+    nbytes = k3_work(a[:5], kw["bd"], kw["bf"]) + 4 * n + n * 128
+    if kw["bn"] >= 0:
+        nbytes += len(np.unique(rows_n.cpu().numpy())) * 16 * kw["bn"] + 4 * n
+    else:
+        nbytes += 4 * len(np.unique(np.clip(docs.cpu().numpy(), 0, norms.shape[0] - 1)))
+    if kw.get("want_dl"):
+        nbytes += n * 128 * 4
+    return nbytes, 6.0 * n * 128
+
+
 def max_abs_err(torch, got, want):
     """max |got - want| over entries finite in both; raises if the
     non-finite entries differ."""
@@ -151,8 +278,105 @@ def max_abs_err(torch, got, want):
     return float((got[gf].double() - want[wf].double()).abs().max())
 
 
-def check_k1(torch, prep, out):
-    """K1 vs plain on every scan group (BM25, bit for bit), timed."""
+def check_k3(torch, plain, scored, what):
+    """Both forms of K3 bit for bit against their plain versions on the
+    recorded calls; returns the scored calls' (bytes, f32 ops)."""
+    from iresearch_tpu_torch.ops import decode as dc
+
+    for a, kw in plain:
+        got = dc.decode_rows(*a, **kw)
+        want = dc.decode_rows_ref(*a, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"K3 differs from plain ({what}, {a[3].shape[0]} rows)")
+    nbytes = flops = 0
+    for a, kw in scored:
+        got = dc.decode_score_rows(*a, **kw)
+        want = dc.decode_score_rows_ref(*a, **kw)
+        torch.cuda.synchronize()
+        if len(got) != len(want) or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K3 scored form differs from plain ({what}): score err "
+                                 f"{max_abs_err(torch, got[1], want[1])}")
+        work = k3_score_work(a, kw, got[0])
+        nbytes, flops = nbytes + work[0], flops + work[1]
+    print(f"K3 vs plain ({what}): bit-exact on {len(plain)} calls "
+          f"{[(a[3].shape[0], kw['bd'], kw['bf']) for a, kw in plain]}; scored form "
+          f"(docs, scores, match flags, dl) bit-exact on {len(scored)} calls "
+          f"{[(a[3].shape[0], kw['bd'], kw['bf'], kw['bn'], bool(kw.get('want_dl'))) for a, kw in scored]}")
+    return nbytes, flops
+
+
+def check_k3_scorers(torch, dev):
+    """K3's scored form vs plain with TFIDF, boost and non-default BM25, on
+    inline norms and on the norms gather, on small random pools: every
+    output but the scores bit for bit, the scores to rtol 1e-6, and says
+    how many cases had bit-identical scores too."""
+    from iresearch_tpu_torch.formats.bitpack import pack_blocks
+    from iresearch_tpu_torch.ops import decode as dc
+    from iresearch_tpu_torch.search.scorers import BM25, TFIDF, BoostScore
+
+    rng = np.random.default_rng(9)
+    nrows, R, bd, bf, bn = 512, 3001, 8, 4, 8
+
+    def pool(b, cap):
+        x = rng.integers(0, 1 << min(b, cap), size=(nrows, 128)).astype(np.uint32)
+        x[0] = 0
+        return torch.from_numpy(pack_blocks(x, b).view(np.int32)).to(dev)
+
+    def ids():
+        return torch.from_numpy(rng.integers(0, nrows, R).astype(np.int32)).to(dev)
+
+    base = torch.from_numpy(rng.integers(0, 1000, nrows).astype(np.int32)).to(dev)
+    norms = torch.from_numpy(rng.integers(1, 300, 1000 + 128 * 256).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.uniform(0.5, 3.0, R).astype(np.float32)).to(dev)
+    head = (pool(bd, 8), pool(bf, 4), base, ids(), ids())
+    nrm, rows_n = pool(bn, 8), ids()
+    cases = exact = 0
+    for scorer in (TFIDF(), TFIDF(with_norms=False), BoostScore(), BM25(k=0.9, b=0.4), BM25(b=0.0)):
+        for b in (bn, -1):
+            a = head + ((nrm, rows_n, None) if b >= 0 else (None, rows_n, norms)) + (w, 37.5)
+            kw = dict(bd=bd, bf=bf, bn=b, scorer=scorer, want_dl=True)
+            got = dc.decode_score_rows(*a, **kw)
+            want = dc.decode_score_rows_ref(*a, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(got[i], want[i]) for i in (0, 2, 3)):
+                raise AssertionError(f"K3 scored form {scorer}, bn={b}: docs, flags or dl differ")
+            torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0.0)
+            cases += 1
+            exact += int(torch.equal(got[1], want[1]))
+    print(f"K3 scored form, tfidf/boost/bm25 variants vs plain: {cases} cases within rtol "
+          f"1e-6, {exact} of them with bit-identical scores")
+
+
+def time_k3(torch, plain, scored, scored_work, floor):
+    """(plain form's, scored form's) timing keys on the two call lists;
+    the scored form's is None without scored calls (an older tree)."""
+    from iresearch_tpu_torch.ops import decode as dc
+
+    p = timed(
+        torch, lambda: [dc.decode_rows(*a, **kw) for a, kw in plain],
+        lambda: [dc.decode_rows_ref(*a, **kw) for a, kw in plain],
+        len(plain), sum(k3_work(a, kw["bd"], kw["bf"]) for a, kw in plain), 0.0, floor,
+    )
+    if not scored:
+        return p, None
+    return p, timed(
+        torch, lambda: [dc.decode_score_rows(*a, **kw) for a, kw in scored],
+        lambda: [dc.decode_score_rows_ref(*a, **kw) for a, kw in scored],
+        len(scored), *scored_work, floor,
+    )
+
+
+def show(name, r, smi):
+    print(f"{name}: device {r['ms']:.5f} ms, enqueue {r['enqueue_ms']:.5f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.5f} ms "
+          f"by {r['bound_by']}, launch floor {r['launch_floor_ms']}, target "
+          f"{r['target_ms']:.5f} ms on {smi}")
+
+
+def check_k1(torch, prep, out, floor):
+    """K1 vs plain on every scan group (BM25, bit for bit), timed between
+    events around eager calls."""
     from iresearch_tpu_torch.ops import dense_scan as ds
 
     calls = [c for c in prep.calls if c[0] == "scan"]
@@ -176,15 +400,20 @@ def check_k1(torch, prep, out):
         runs.append((pools, starts, ws, norms, avgdl_f, kk))
     shapes = [(tuple(r[1].shape), r[5]["span_bits"]) for r in runs]
     print(f"K1 bm25 vs plain: bit-exact on {len(runs)} scan groups {shapes}")
-    ms = cuda_ms(torch, lambda: [ds.dense_scan_rowmax(p, s, w, n, a, **kk) for p, s, w, n, a, kk in runs])
+    def kernel():
+        return [ds.dense_scan_rowmax(p, s, w, n, a, **kk) for p, s, w, n, a, kk in runs]
+
+    ms = cuda_ms(torch, kernel)
     plain = cuda_ms(torch, lambda: [ds.dense_scan_rowmax_ref(p, s, w, n, a, **kk) for p, s, w, n, a, kk in runs], iters=5, warmup=1)
     work = [k1_work(torch, r) for r in runs]
     nbytes, flops = sum(w[0] for w in work), sum(w[1] for w in work)
     bms, by = bound(nbytes, flops)
     print(f"K1: {ms:.4f} ms for the {len(runs)} groups (plain {plain:.4f} ms); needs "
           f"{nbytes} bytes and {flops:.0f} f32 ops -> bound {bms:.4f} ms by {by}")
-    out["dense_scan_rowmax"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                    bound_ms=bms, bound_by=by, library_ms=None)
+    out["dense_scan_rowmax"] = dict(
+        max_abs_err=err, ms=ms, enqueue_ms=enqueue_ms(torch, kernel), plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=None, launch_floor_ms=floor,
+        target_ms=bms if floor is None else max(bms, len(runs) * floor))
     check_k1_scorers(torch, norms.device)
 
 
@@ -222,35 +451,30 @@ def check_k1_scorers(torch, dev):
     print(f"K1 tfidf/boost/bm25 variants vs plain: {n} cases within rtol 1e-6")
 
 
-def check_k2_k3(torch, prep, out):
-    """K2 and K3 vs plain on every dslice group (bit for bit), timed."""
-    from iresearch_tpu_torch.ops import decode as dc
+def check_k2_k3(torch, prep, out, floor, smi):
+    """K2 and both forms of K3 vs plain on the calls that every dslice
+    group really makes (bit for bit), timed."""
+    from iresearch_tpu_torch.exec.batch import KERNELS
     from iresearch_tpu_torch.ops import dma_gather as dg
 
     calls = [c for c in prep.calls if c[0] == "dslice"]
     if not calls:
         raise AssertionError("the mix has no dslice group")
-    runs2, runs3 = [], []
-    for _t, _q, _fn, args, kw in calls:
-        pools, starts = args[0], args[1]
-        R = kw["R"]
-        bd, bf, _bn = kw["gbits"]
+    rec = {}
+    for _t, _q, fn, args, kw in calls:
+        for name, made in record_calls(KERNELS, fn, args, kw).items():
+            rec.setdefault(name, []).extend(made)
+    runs2 = [a for a, _kw in rec["row_slices"]]
+    for pools, starts, R in runs2:
         got = dg.dma_row_slices(pools, starts, R)
         want = dg.dma_row_slices_ref(pools, starts, R)
+        torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError("K2 differs from plain")
-        runs2.append((pools, starts, R))
-        m = starts.shape[0] * R
-        rows = torch.arange(m, dtype=torch.int32, device=starts.device)
-        a3 = (got[0].reshape(m, -1), got[1].reshape(m, -1), got[-1].reshape(m), rows, rows)
-        d_got = dc.decode_rows(*a3, bd=bd, bf=bf)
-        d_want = dc.decode_rows_ref(*a3, bd=bd, bf=bf)
-        if not (torch.equal(d_got[0], d_want[0]) and torch.equal(d_got[1], d_want[1])):
-            raise AssertionError("K3 differs from plain")
-        runs3.append((a3, bd, bf))
     print(f"K2 vs plain: bit-exact on {len(runs2)} dslice groups "
           f"{[(tuple(r[1].shape), r[2], [tuple(p.shape) for p in r[0]]) for r in runs2]}")
-    print(f"K3 vs plain: bit-exact on {len(runs3)} groups {[(r[0][3].shape[0], r[1], r[2]) for r in runs3]}")
+    plain, scored = k3_lists(rec)
+    scored_work = check_k3(torch, plain, scored, "dslice form")
     # K2's bytes: each distinct window read once, every window written once
     k2_bytes = 0
     lib_runs = []  # index_select's row ids, made outside the timed calls
@@ -267,25 +491,25 @@ def check_k2_k3(torch, prep, out):
               for o in dg.dma_row_slices(pools, starts, R)]
     if not all(torch.equal(a, b) for a, b in zip(k2_lib, k2_got)):
         raise AssertionError("index_select differs from K2")
-    out["dma_row_slices"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: [dg.dma_row_slices(*r) for r in runs2]),
-        plain_ms=cuda_ms(torch, lambda: [dg.dma_row_slices_ref(*r) for r in runs2]),
-        library_ms=cuda_ms(torch, lambda: [p.index_select(0, i) for p, i in lib_runs]),
-    )
-    out["dma_row_slices"].update(zip(("bound_ms", "bound_by"), bound(k2_bytes)))
-    out["decode_rows"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: [dc.decode_rows(*a, bd=bd, bf=bf) for a, bd, bf in runs3]),
-        plain_ms=cuda_ms(torch, lambda: [dc.decode_rows_ref(*a, bd=bd, bf=bf) for a, bd, bf in runs3]),
-        library_ms=None,
-    )
-    out["decode_rows"].update(zip(("bound_ms", "bound_by"),
-                                  bound(sum(k3_work(a, bd, bf) for a, bd, bf in runs3))))
-    for name in ("dma_row_slices", "decode_rows"):
-        r = out[name]
-        print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-              f"{r['library_ms']}, bound {r['bound_ms']:.5f} by {r['bound_by']})")
+
+    def library():
+        return [p.index_select(0, i) for p, i in lib_runs]
+
+    out["dma_row_slices"] = dict(max_abs_err=0.0, **timed(
+        torch, lambda: [dg.dma_row_slices(*r) for r in runs2],
+        lambda: [dg.dma_row_slices_ref(*r) for r in runs2],
+        len(runs2), k2_bytes, 0.0, floor, library=library,
+    ), library_enqueue_ms=enqueue_ms(torch, library))
+    p, sc = time_k3(torch, plain, scored, scored_work, floor)
+    out["decode_rows"] = dict(max_abs_err=0.0, **p)
+    if sc is not None:
+        out["decode_score_rows"] = dict(max_abs_err=0.0, **sc)
+        check_k3_scorers(torch, starts.device)
+    for name in out:
+        if name != "dense_scan_rowmax":
+            show(name, out[name], smi)
+    print(f"index_select per pool ({len(lib_runs)} calls): enqueue "
+          f"{out['dma_row_slices']['library_enqueue_ms']:.5f} ms")
 
 
 def per_query(grouped, nq):
@@ -358,8 +582,10 @@ def profile_passes(torch, prep, path, kind, smi, passes=5):
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.device_time_total for e in kernels) / 1e6  # us -> s
     by_name = Counter()
+    count = Counter()
     for e in kernels:
         by_name[e.name] += e.device_time_total
+        count[e.name] += 1
     with open(path, "w") as f:
         f.write(f"{kind} ({smi}); {passes} passes\n")
         f.write(prof.key_averages().table(sort_by="device_time_total", row_limit=60))
@@ -369,6 +595,12 @@ def profile_passes(torch, prep, path, kind, smi, passes=5):
           f"device ops/pass; table in {path}")
     for name, us in by_name.most_common(8):
         print(f"  {us / passes / 1e3:.4f} ms/pass  {name[:100]}")
+    # the port's own kernels inside the pass, their inputs not in L2 from
+    # a launch just before (the timed repeats of phase 5 keep them there)
+    for name in sorted(by_name):
+        if any(k in name for k in ("k1_", "k2_", "k3_")):
+            print(f"  in-pass {name[:60]}: {count[name] / passes:.1f} launches/pass, "
+                  f"{by_name[name] / count[name] / 1e3:.5f} ms device per launch")
     from iresearch_tpu_torch.exec.batch import KERNELS
 
     per_tier = Counter()
@@ -406,8 +638,11 @@ def profile_tiers(torch, prep, smi, runs=3):
         busy = sum(by_name.values()) / runs / 1e3
         top = ", ".join(f"{us / runs / 1e3:.4f} ms {name[:60]}"
                         for name, us in by_name.most_common(3))
+        own = ", ".join(f"{name.split('(')[0][-24:]} {us / runs / 1e3:.5f} ms"
+                        for name, us in sorted(by_name.items())
+                        if any(k in name for k in ("k2_", "k3_")))
         print(f"  {tier:8s} wall {wall * 1e3:.4f} ms, device {busy:.4f} ms, "
-              f"{len(ops) / runs:.0f} device ops: {top}")
+              f"{len(ops) / runs:.0f} device ops: {top}; of it {own}")
 
 
 def check_result(torch, got, plain, flt, sr, scorer, k, what):
@@ -424,14 +659,18 @@ def check_result(torch, got, plain, flt, sr, scorer, k, what):
 
 def expected_kernels(tier, plan):
     """The kernels a single query's tier must launch: K1 for the fused
-    scan, K2 and K3 for dslice, K3 wherever postings rows are decoded;
-    the skyline tier has no kernel (plain torch, as XLA on the TPU)."""
+    scan, K2 and K3's scored form for dslice, the scored form wherever
+    postings rows are decoded, and K3's plain form too where a join probes
+    a sparse span; the skyline tier has no kernel (plain torch, as XLA on
+    the TPU)."""
     if tier == "scan":
         return ("dense_scan_rowmax",)
     if tier == "dslice":
-        return ("dma_row_slices", "decode_rows")
+        return ("dma_row_slices", "decode_score_rows")
+    if tier == "join" and len(plan.groups) > 1:
+        return ("decode_score_rows", "decode_rows")
     if tier != "skyline" and plan.groups:
-        return ("decode_rows",)
+        return ("decode_score_rows",)
     return ()
 
 
@@ -486,15 +725,11 @@ def run_breadth(torch, sr, scorer, k, dev, smi):
               f"{ms:.4f} ms/query synchronised ({SINGLE_REPS} runs) on {smi}")
 
 
-def run_tiers(torch, sr, scorer, k, dev, smi, kern):
-    """Phase 8b: one QueryBatch with a query per row-decoding tier, each
-    plan compiled under its own planner knobs; K3 must launch in every
-    tier; K3 in gather form is held against its plain version on the rows
-    that the fold and join groups decode."""
+def tier_batch(sr, scorer, k, dev):
+    """(prepared batch, tasks): one QueryBatch with a query per
+    row-decoding tier, each plan compiled under its own planner knobs."""
     from iresearch_tpu_torch import bench_mix
-    from iresearch_tpu_torch.exec.batch import KERNELS, PLAIN, Kernels, QueryBatch
-    from iresearch_tpu_torch.kernels import build as kb
-    from iresearch_tpu_torch.ops import decode as dc
+    from iresearch_tpu_torch.exec.batch import QueryBatch
 
     tasks = bench_mix.tier_tasks(sr)
     qb = QueryBatch([f for _t, f, _k in tasks], [sr], scorer, wand=True, device=dev)
@@ -508,55 +743,58 @@ def run_tiers(torch, sr, scorer, k, dev, smi, kern):
     tiers = [c[0] for c in prep.calls]
     if tiers != [t for t, _f, _k in tasks]:
         raise AssertionError(f"batch groups {tiers}, expected one per tier")
-    k3_total = 0
+    return prep, tasks
+
+
+def run_tiers(torch, prep, tasks, sr, scorer, k, smi):
+    """Phase 8b: every tier of the batch launches K3's scored form (the
+    join its plain form too) and passes the exactness gate; returns the
+    launches summed over the tier calls."""
+    from iresearch_tpu_torch.exec.batch import KERNELS, PLAIN
+    from iresearch_tpu_torch.kernels import build as kb
+
+    total = Counter()
     for (tier, _q, fn, args, kw), (_t, flt, _k) in zip(prep.calls, tasks):
         kb.reset_launch_counts()
         got = fn(KERNELS, *args, **kw)
         torch.cuda.synchronize()
         launches = {n: c for n, c in kb.launch_counts().items() if c}
-        if not launches.get("decode_rows"):
-            raise AssertionError(f"tier {tier}: K3 never launched ({launches})")
-        k3_total += launches["decode_rows"]
+        need = ("decode_score_rows",) + (("decode_rows",) if tier == "join" else ())
+        if not all(launches.get(n) for n in need):
+            raise AssertionError(f"tier {tier}: launches {launches}, needs {need}")
+        total.update(launches)
         plain = fn(PLAIN, *args, **kw)
         hits = check_result(torch, (got[0][0], got[1][0]), (plain[0][0], plain[1][0]),
                             flt, sr, scorer, k, f"tier {tier}")
         ms = sync_ms(torch, lambda: fn(KERNELS, *args, **kw))
         print(f"tier {tier:8s} {hits:2d} hits, launches {launches}: "
               f"{ms:.4f} ms/query synchronised ({SINGLE_REPS} runs) on {smi}")
+    return total
 
-    # K3 in gather form on the rows the fold and join groups really decode
-    recorded = []
 
-    def recording(*a, **kw):
-        recorded.append((a, kw))
-        return dc.decode_rows(*a, **kw)
+def check_gather(torch, prep, kern, floor, smi):
+    """Both forms of K3 in gather form, on the rows that the fold and join
+    groups really decode: held against plain and timed (``gather_*`` keys
+    beside the dslice form's)."""
+    from iresearch_tpu_torch.exec.batch import KERNELS
 
-    rec_kern = Kernels(KERNELS.rowmax, KERNELS.row_slices, recording)
+    rec = {}
     for tier, _q, fn, args, kw in prep.calls:
         if tier in ("fold", "join"):
-            fn(rec_kern, *args, **kw)
-    nrows = 0
-    gathered = 0
-    for a, kw in recorded:
-        got = dc.decode_rows(*a, **kw)
-        want = dc.decode_rows_ref(*a, **kw)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"K3 gather form differs from plain on {a[3].shape[0]} rows")
-        nrows += a[3].shape[0]
-        gathered += int((a[3] != a[4]).sum())
-    print(f"K3 gather form vs plain: bit-exact on {len(recorded)} calls of the fold and "
-          f"join groups, {nrows} rows ({gathered} with rows_d != rows_f)")
-    kern["decode_rows"].update(
-        gather_bound_ms=bound(sum(k3_work(a[:5], kw["bd"], kw["bf"]) for a, kw in recorded))[0],
-        gather_rows=nrows,
-        gather_ms=cuda_ms(torch, lambda: [dc.decode_rows(*a, **kw) for a, kw in recorded]),
-        gather_plain_ms=cuda_ms(torch, lambda: [dc.decode_rows_ref(*a, **kw) for a, kw in recorded]),
-        gather_launches=k3_total,
-    )
-    print(f"K3 gather form: {kern['decode_rows']['gather_ms']:.4f} ms vs plain "
-          f"{kern['decode_rows']['gather_plain_ms']:.4f} ms for those {nrows} rows on {smi}")
-    return prep
+            for name, made in record_calls(KERNELS, fn, args, kw).items():
+                rec.setdefault(name, []).extend(made)
+    plain, scored = k3_lists(rec)
+    scored_work = check_k3(torch, plain, scored, "gather form, fold and join groups")
+    gathered = sum(int((a[3] != a[4]).sum()) for a, _kw in plain)
+    print(f"K3 gather form: {sum(a[3].shape[0] for a, _kw in plain)} rows "
+          f"({gathered} with rows_d != rows_f)")
+    for name, r, calls in zip(("decode_rows", "decode_score_rows"),
+                              time_k3(torch, plain, scored, scored_work, floor),
+                              (plain, scored)):
+        if r is not None:
+            r["rows"] = sum(a[3].shape[0] for a, _kw in calls)
+            kern[name].update({f"gather_{key}": v for key, v in r.items()})
+            show(f"{name}, gather form, {r['rows']} rows in {len(calls)} calls", r, smi)
 
 
 def main() -> int:
@@ -564,6 +802,9 @@ def main() -> int:
     ap.add_argument("--docs", type=int, default=5_000_000)
     ap.add_argument("--profile", metavar="FILE",
                     help="also profile 5 batched passes; kernel table to FILE")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only hold the kernels against plain and time them "
+                         "(phases 1-5 and the gather form of phase 8)")
     args = ap.parse_args()
 
     import torch
@@ -623,9 +864,17 @@ def main() -> int:
     t0 = time.perf_counter()
     prep = QueryBatch(filters, [sr], scorer, wand=True, device=dev).prepare(0, k)
     kern = {}
-    check_k1(torch, prep, kern)
-    check_k2_k3(torch, prep, kern)
+    floor = launch_floor(torch, dev)
+    print(f"launch floor (an empty kernel, device time per launch): {floor} ms on {smi}")
+    check_k1(torch, prep, kern, floor)
+    check_k2_k3(torch, prep, kern, floor, smi)
     phase("5 kernels", t0)
+    if args.kernel_times:
+        check_gather(torch, tier_batch(sr, scorer, k, dev)[0], kern, floor, smi)
+        print(json.dumps({"kernels": [dict(name=n, **r) for n, r in kern.items()]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     t0 = time.perf_counter()
     kb.reset_launch_counts()
@@ -639,8 +888,9 @@ def main() -> int:
         tq[t] += len(qis)
     print(f"groups per tier: {dict(tiers)}; queries per tier: {dict(tq)}")
     print(f"launches in the main-path run: {launches}")
+    # K3's plain form is on the tier batch's path (the join's probe, phase 8)
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name != "decode_rows":
             raise AssertionError(f"kernel {name} never launched on the main path")
     if set(tiers) != {"skyline", "dslice", "scan"}:
         raise AssertionError(f"tiers {dict(tiers)}: expected all three")
@@ -668,7 +918,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     run_breadth(torch, sr, scorer, k, dev, smi)
-    tier_prep = run_tiers(torch, sr, scorer, k, dev, smi, kern)
+    tier_prep, tier_tasks = tier_batch(sr, scorer, k, dev)
+    tier_launches = run_tiers(torch, tier_prep, tier_tasks, sr, scorer, k, smi)
+    print(f"launches over the {len(tier_tasks)} tier calls: {dict(tier_launches)}")
+    check_gather(torch, tier_prep, kern, floor, smi)
     phase("8 breadth and tiers", t0)
     if args.profile:
         profile_passes(torch, prep, args.profile, kind, smi)
@@ -682,9 +935,14 @@ def main() -> int:
         raise AssertionError(f"JAX modules imported: {jax_mods[:5]}")
     print("imports: no module of jax or iresearch_tpu loaded")
 
+    for name in kb.KERNELS:
+        if launches[name] + tier_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on a main path")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=launches[name], **kern[name])
+             launches=launches[name] + tier_launches[name],
+             launches_pass=launches[name], launches_tiers=tier_launches[name],
+             **kern[name])
         for name in kb.KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

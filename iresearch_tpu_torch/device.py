@@ -8,6 +8,9 @@ where there is no card instead of continuing on the CPU. The tests pass
 
 from __future__ import annotations
 
+import weakref
+from typing import Any, Dict, Optional, Sequence
+
 import torch
 
 
@@ -43,3 +46,45 @@ def check_tensor(t: torch.Tensor, name: str, dtype, device, ndim: int):
         raise ValueError(f"{name}: rank {t.dim()}, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``, for a
+    kernel's foreign call."""
+    fast = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if fast is not None and device.index is not None:
+        return fast(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+class CheckedSets:
+    """What a kernel wrapper worked out for a set of long-lived tensors
+    (a segment's pools): that they passed its checks, and the foreign
+    call's arguments built from them.
+
+    A set is known by the identity of its tensors, held through weak
+    references, so a tensor that takes a dead one's ``id`` is checked
+    anew and nothing is kept alive. The pools are never resized or
+    re-pointed after upload, which is what makes the remembered
+    ``data_ptr()`` values safe. The entries unused for longest make room
+    for new ones, so sets of short-lived tensors (one call's row windows)
+    pass through without growing it or pushing out the pools."""
+
+    def __init__(self, size: int = 64) -> None:
+        self._size = size
+        self._sets: Dict[tuple, tuple] = {}
+
+    def get(self, tensors: Sequence[torch.Tensor], static: tuple = ()) -> Optional[Any]:
+        key = (tuple(map(id, tensors)), static)
+        entry = self._sets.get(key)
+        if entry is not None and all(r() is t for r, t in zip(entry[0], tensors)):
+            self._sets[key] = self._sets.pop(key)  # the newest again
+            return entry[1]
+        return None
+
+    def put(self, tensors: Sequence[torch.Tensor], static: tuple, value: Any) -> Any:
+        if len(self._sets) >= self._size:
+            del self._sets[next(iter(self._sets))]
+        refs = tuple(weakref.ref(t) for t in tensors)
+        self._sets[(tuple(map(id, tensors)), static)] = (refs, value)
+        return value

@@ -11,7 +11,7 @@ points run the same bodies:
 * fused scan — K1 row maxima, then the top ``m = min(max(2k, 16), ndrows)``
   rows rescored exactly. The single query takes it only for two or more
   spans or a conjunction, as in the JAX package;
-* dslice — K2 windows, K3 decode, score, top-k;
+* dslice — K2 windows, K3 decode and score (one launch), top-k;
 * direct, sort, join, gridmix — ``exec/candidates.py:candidate_body``;
 * wand — ``exec/executor.py:wand_body``;
 * fold, or aux when the plan has host-aux leaves — ``segment_body``, the
@@ -139,7 +139,7 @@ def _run_fold(
         match, score = segment_body(
             pools, rs, avgdl, lm, am, asc, alive,
             tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves,
-            nd=nd, decode=kern.decode,
+            nd=nd, kern=kern,
             dense_args=_dense_args(dense_shared, dd), dense_static=dense_static,
         )
         return topk_docs(torch.where(match, score, _NEG_INF), None, k)
@@ -159,7 +159,7 @@ def _run_wand(
         return wand_body(
             pools, rs, avgdl, lm, alive,
             tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves,
-            k=k, nd=nd, sample=sample, mode=wand_mode, decode=kern.decode,
+            k=k, nd=nd, sample=sample, mode=wand_mode, kern=kern,
             dense_args=_dense_args(dense_shared, dd), dense_static=dense_static,
         )
 
@@ -178,7 +178,7 @@ def _run_candidates(
         rs, lm, nr, dd = xs
         return candidate_body(
             pools, rs, avgdl, lm, alive, nr, mode=mode, driver_gi=driver_gi,
-            nd=nd, num_leaves=num_leaves, decode=kern.decode,
+            nd=nd, num_leaves=num_leaves, kern=kern,
             dense_args=_dense_args(dense_shared, dd), **kw,
         )
 

@@ -1,8 +1,11 @@
 """Scale-proportional tiers: query cost O(postings) (``exec/candidates.py``).
 
 Every body takes a leading query axis ``[Q, ...]`` (``Q = 1`` for the
-single query) and decodes its postings rows through K3
-(``ops/decode.py:decode_rows``, row-gather form):
+single query) and decodes and scores its postings rows through K3's
+scored form (``ops/decode.py:decode_score_rows``, through
+``group_contrib``); the join's probe, which needs raw frequencies, goes
+through the plain form (``decode_rows``). ``kern`` is the kernel set
+(``KERNELS`` or ``PLAIN``):
 
 * ``dslice`` — a single term's contiguous rows, fetched by K2;
 * ``direct`` — a single-span leaf: decoded docs are unique, top-k over
@@ -26,6 +29,7 @@ import torch
 
 from iresearch_tpu_torch.exec.executor import (
     _NEG_INF,
+    KERNELS,
     dense_contrib,
     fold_tree,
     gather_clamped,
@@ -41,7 +45,6 @@ from iresearch_tpu_torch.formats.bitpack import (
     words_per_block,
 )
 from iresearch_tpu_torch.formats.spec import BLOCK
-from iresearch_tpu_torch.ops.decode import decode_rows
 from iresearch_tpu_torch.ops.topk import _IMAX32, topk_docs
 from iresearch_tpu_torch.search.scorers import Scorer, score_block_torch
 
@@ -60,30 +63,28 @@ def dslice_core(
     gbits,
     scorer: Scorer,
     k: int,
-    decode=decode_rows,
+    kern=KERNELS,
 ):
     """Per-query (vals f32 [Q, k], docs i32 [Q, k]) of pre-fetched [R, wpb]
-    row windows. Rows past a query's real count decode other terms' data:
-    they are masked by ``nreal`` and their doc ids parked at IMAX, so
-    tie-break cannot collide with a real doc. ``decode`` is K3
-    (``decode_rows``) or its plain version."""
+    row windows, decoded and scored by one launch of K3's scored form
+    (``kern.decode_score``) with every window row its own pool row. Rows
+    past a query's real count decode other terms' data: they are masked by
+    ``nreal`` and their doc ids parked at IMAX, so tie-break cannot collide
+    with a real doc."""
     bd, bf, bn = gbits
     Q, R = base_r.shape
     n = Q * R
     rows = torch.arange(n, dtype=torch.int32, device=base_r.device)
-    docs, f = decode(
+    docs, sc, m = kern.decode_score(
         dwords.reshape(n, -1), fwords.reshape(n, -1), base_r.reshape(n),
-        rows, rows, bd=bd, bf=bf,
+        rows, rows, None if nwords is None else nwords.reshape(n, -1), rows,
+        norms, w[:, None].expand(Q, R).reshape(n), avgdl,
+        bd=bd, bf=bf, bn=bn, scorer=scorer,
     )
     docs = docs.reshape(Q, R, BLOCK)
-    f = f.reshape(Q, R, BLOCK)
-    if bn >= 0:
-        dl = torch.clamp_min(unpack_torch(nwords, bn).to(torch.float32), 1.0)
-    else:
-        dl = gather_clamped(norms, docs)
-    sc = score_block_torch(scorer, w[:, None, None], f, dl, avgdl)
+    sc = sc.reshape(Q, R, BLOCK)
     rowix = torch.arange(R, dtype=torch.int32, device=base_r.device)
-    live = (rowix[None, :] < nreal[:, None])[:, :, None] & (f > 0)
+    live = (rowix[None, :] < nreal[:, None])[:, :, None] & m.reshape(Q, R, BLOCK)
     if alive is not None:
         live = live & gather_clamped(alive, docs)
     docs = torch.where(live, docs, _IMAX32)
@@ -103,11 +104,11 @@ def dslice_topk(
     return dslice_core(
         outs[0], outs[1], outs[2] if gbits[2] >= 0 else None,
         outs[-1].reshape(q, R), norms, nreal, w, avgdl, alive,
-        gbits=gbits, scorer=scorer, k=k, decode=kern.decode,
+        gbits=gbits, scorer=scorer, k=k, kern=kern,
     )
 
 
-def decode_flat(pools, rowsets, avgdl, gbits, scorer: Scorer, *, decode, slicer=None):
+def decode_flat(pools, rowsets, avgdl, gbits, scorer: Scorer, *, kern=KERNELS, slicer=None):
     """Every row group decoded into flat per-lane arrays: (docs i32
     [Q, P], score f32, matched bool, leaf i32), P = sum of rows * 128.
     ``slicer`` optionally narrows each rowset (WAND sampled phase)."""
@@ -116,7 +117,7 @@ def decode_flat(pools, rowsets, avgdl, gbits, scorer: Scorer, *, decode, slicer=
         rows_d, rows_f, rows_n, w, leaf = rs[:5] if slicer is None else slicer(rs)
         docs, sc, m = group_contrib(
             pool, rows_d, rows_f, rows_n, w, gbits[gi], avgdl[gi], scorer,
-            decode=decode,
+            kern=kern,
         )
         q = docs.shape[0]
         docs_l.append(docs.reshape(q, -1))
@@ -126,11 +127,11 @@ def decode_flat(pools, rowsets, avgdl, gbits, scorer: Scorer, *, decode, slicer=
     return tuple(torch.cat(x, dim=-1) for x in (docs_l, sc_l, m_l, leaf_l))
 
 
-def direct_topk(pools, rowsets, avgdl, alive, *, gbits, scorer, k, decode):
+def direct_topk(pools, rowsets, avgdl, alive, *, gbits, scorer, k, kern=KERNELS):
     """Single-span top-k: decoded docs are unique, no combine is needed.
     Trailing padding lanes repeat the last real doc with freq 0 and the
     sentinel decodes to doc 0 with freq 0; both carry matched=False."""
-    docs, sc, m, _ = decode_flat(pools, rowsets, avgdl, gbits, scorer, decode=decode)
+    docs, sc, m, _ = decode_flat(pools, rowsets, avgdl, gbits, scorer, kern=kern)
     match = m if alive is None else m & gather_clamped(alive, docs)
     return topk_docs(torch.where(match, sc, _NEG_INF), docs, k)
 
@@ -143,7 +144,7 @@ def _shift_right(x: torch.Tensor, s: int) -> torch.Tensor:
 
 def sorted_topk(
     pools, rowsets, avgdl, leaf_min, alive,
-    *, tree, gbits, scorer, num_leaves, k, decode, slicer=None,
+    *, tree, gbits, scorer, num_leaves, k, kern=KERNELS, slicer=None,
     dense_leaf=None,  # (score_d [Q, L, nd], count_d [Q, L, nd], leaves)
 ):
     """Sort + segmented-scan candidate top-k for covering trees.
@@ -153,7 +154,7 @@ def sorted_topk(
     JAX package's order; each run's last lane then holds its doc's
     per-leaf totals and becomes the doc's candidate slot."""
     docs, sc, m, leaf = decode_flat(
-        pools, rowsets, avgdl, gbits, scorer, decode=decode, slicer=slicer
+        pools, rowsets, avgdl, gbits, scorer, kern=kern, slicer=slicer
     )
     q, P = docs.shape
     dev = docs.device
@@ -223,7 +224,7 @@ def dense_probe(dargs, dstat, cdocs, scorer: Scorer, dl=None):
 
 def join_topk(
     pools, rowsets, avgdl, leaf_min, alive, nreal,
-    *, tree, gbits, scorer, num_leaves, k, driver_gi, group_leaf, decode,
+    *, tree, gbits, scorer, num_leaves, k, driver_gi, group_leaf, kern=KERNELS,
     dense_args=(), dense_static=(),
 ):
     """Block-probe conjunction join (``exec/candidates.py:join_topk``).
@@ -255,7 +256,7 @@ def join_topk(
             torch.searchsorted(base_key, cdocs, right=True) - 1, 0, R - 1
         )
         rd = g_rows_d.gather(-1, rowpos)
-        docs_row, freqs_row = decode(
+        docs_row, freqs_row = kern.decode(
             doc_words, freq_words, base, rd.reshape(-1),
             g_rows_f.gather(-1, rowpos).reshape(-1), bd=gbits[gi][0], bf=gbits[gi][1],
         )
@@ -279,7 +280,7 @@ def join_topk(
         rows_d, rows_f, rows_n, w, _leaf = rowsets[gi][:5]
         docs, sc, m, dl = group_contrib(
             pools[gi], rows_d, rows_f, rows_n, w, gbits[gi], avgdl[gi],
-            scorer, decode=decode, want_dl=True,
+            scorer, kern=kern, want_dl=True,
         )
         P = docs.shape[1] * BLOCK
         lane = torch.arange(P, dtype=torch.int32, device=dev)
@@ -353,7 +354,7 @@ def merge_topk_lists(va, da, vb, db, k: int):
 
 def gridmix_topk(
     pools, rowsets, avgdl, leaf_min, alive,
-    *, tree, gbits, scorer, num_leaves, k, nd, decode,
+    *, tree, gbits, scorer, num_leaves, k, nd, kern=KERNELS,
     dense_args, dense_static,
 ):
     """Dual-view execution for sum-merged trees mixing dense-grid and
@@ -383,7 +384,7 @@ def gridmix_topk(
     vb, db = sorted_topk(
         pools, rowsets, avgdl, leaf_min, alive,
         tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves,
-        k=min(k, p_sp), decode=decode,
+        k=min(k, p_sp), kern=kern,
         dense_leaf=(score_d, count_d, dense_leaves),
     )
     return merge_topk_lists(va, da, vb, db, k)
@@ -391,7 +392,7 @@ def gridmix_topk(
 
 def wand_theta(
     pools, sorted_sets, avgdl, leaf_min, alive,
-    *, tree, gbits, scorer, num_leaves, k, sample, mode, decode,
+    *, tree, gbits, scorer, num_leaves, k, sample, mode, kern=KERNELS,
     wand_mode="exact",
 ):
     """Lower-bound θ [Q] from the `sample` highest-upper-bound blocks per
@@ -401,7 +402,7 @@ def wand_theta(
 
     if mode == "direct":
         docs, sc, m, _ = decode_flat(
-            pools, sorted_sets, avgdl, gbits, scorer, decode=decode, slicer=slicer
+            pools, sorted_sets, avgdl, gbits, scorer, kern=kern, slicer=slicer
         )
         pm = m if alive is None else m & gather_clamped(alive, docs)
         theta = torch.topk(torch.where(pm, sc, _NEG_INF), k, dim=-1).values[:, k - 1]
@@ -409,7 +410,7 @@ def wand_theta(
         vals, _docs = sorted_topk(
             pools, sorted_sets, avgdl, leaf_min, alive,
             tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves,
-            k=k, decode=decode, slicer=slicer,
+            k=k, kern=kern, slicer=slicer,
         )
         theta = vals[:, k - 1]
     if wand_mode in ("strict", "approx"):
@@ -437,7 +438,7 @@ def candidate_body(
     sample: int = 16,
     wand_mode: str = "exact",
     nd: int = 0,
-    decode=decode_rows,
+    kern=KERNELS,
     dense_args=(),
     dense_static=(),
 ):
@@ -447,7 +448,7 @@ def candidate_body(
         return gridmix_topk(
             pools, rowsets, avgdl, leaf_min, alive,
             tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves,
-            k=k, nd=nd, decode=decode, dense_args=dense_args,
+            k=k, nd=nd, kern=kern, dense_args=dense_args,
             dense_static=dense_static,
         )
     sets = rowsets
@@ -461,24 +462,24 @@ def candidate_body(
             theta = wand_theta(
                 pools, sorted_sets, avgdl, leaf_min, alive,
                 tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves,
-                k=k, sample=sample, mode=mode, decode=decode,
+                k=k, sample=sample, mode=mode, kern=kern,
                 wand_mode=wand_mode,
             )
             sets = [prune_rows(rs, theta) for rs in sorted_sets]
     if mode == "direct":
         return direct_topk(
             pools, sets, avgdl, alive, gbits=gbits, scorer=scorer, k=k,
-            decode=decode,
+            kern=kern,
         )
     if mode == "join":
         return join_topk(
             pools, sets, avgdl, leaf_min, alive, nreal,
             tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves,
-            k=k, driver_gi=driver_gi, group_leaf=group_leaf, decode=decode,
+            k=k, driver_gi=driver_gi, group_leaf=group_leaf, kern=kern,
             dense_args=dense_args, dense_static=dense_static,
         )
     return sorted_topk(
         pools, sets, avgdl, leaf_min, alive,
         tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves, k=k,
-        decode=decode,
+        kern=kern,
     )

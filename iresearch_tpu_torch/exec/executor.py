@@ -6,9 +6,10 @@ so single, batched (and later sharded) execution share one definition,
 as they do in the JAX package:
 
 * ``fold_tree`` — the static boolean tree fold over ``[..., n]`` tensors;
-* ``group_contrib`` — one row group's decode through K3 (the row-gather
-  form of ``ops/decode.py:decode_rows``), doc lengths from the inline norm
-  pool (or ``norms[docs]`` on legacy ``bn == -1`` segments), then score;
+* ``group_contrib`` — one row group's decode, doc lengths (the inline
+  norm pool, or ``norms[docs]`` on legacy ``bn == -1`` segments), scores
+  and match flags in one launch of K3's scored form
+  (``ops/decode.py:decode_score_rows``, row-gather form);
 * ``dense_contrib`` — one dense-grid span over the ``[nd]`` doc axis;
 * ``segment_body`` — per-leaf ``[Q, L, nd]`` score and count scatter-adds,
   the fold and the alive mask;
@@ -44,7 +45,13 @@ from iresearch_tpu_torch.exec import plancache as _plancache
 from iresearch_tpu_torch.formats.bitpack import unpack_torch
 from iresearch_tpu_torch.formats.spec import BLOCK
 from iresearch_tpu_torch.index.segment import SegmentReader
-from iresearch_tpu_torch.ops.decode import decode_rows, decode_rows_ref
+from iresearch_tpu_torch.ops.decode import (  # noqa: F401 (re-exported)
+    decode_rows,
+    decode_rows_ref,
+    decode_score_rows,
+    decode_score_rows_ref,
+    gather_clamped,
+)
 from iresearch_tpu_torch.ops.dense_scan import (
     dense_scan_rowmax,
     dense_scan_rowmax_ref,
@@ -57,12 +64,17 @@ from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32, score_block_to
 
 _NEG_INF = float("-inf")
 
-# the three kernels; PLAIN holds their plain versions, which a runner
-# given ``PLAIN`` calls directly (the kernel wrappers themselves take the
-# plain version only for CPU tensors)
-Kernels = namedtuple("Kernels", "rowmax row_slices decode")
-KERNELS = Kernels(dense_scan_rowmax, dma_row_slices, decode_rows)
-PLAIN = Kernels(dense_scan_rowmax_ref, dma_row_slices_ref, decode_rows_ref)
+# the kernels (K3 in its plain and its scored form); PLAIN holds their
+# plain versions, which a runner given ``PLAIN`` calls directly (the kernel
+# wrappers themselves take the plain version only for CPU tensors)
+Kernels = namedtuple("Kernels", "rowmax row_slices decode decode_score")
+KERNELS = Kernels(
+    dense_scan_rowmax, dma_row_slices, decode_rows, decode_score_rows
+)
+PLAIN = Kernels(
+    dense_scan_rowmax_ref, dma_row_slices_ref, decode_rows_ref,
+    decode_score_rows_ref,
+)
 
 
 def scan_shape(plan):
@@ -164,45 +176,28 @@ def fold_tree(tree, leaf_match, leaf_score, aux_match, aux_score):
     raise ValueError(f"bad tree node {tree!r}")
 
 
-def gather_clamped(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``values[idx]`` with ``idx`` clamped into range, as an XLA gather
-    clamps (an out-of-range index on CUDA is a device assert)."""
-    return values[torch.clamp(idx, 0, values.shape[0] - 1).to(torch.int64)]
-
-
 def group_contrib(
     pool, rows_d, rows_f, rows_n, w, gbits, avgdl, scorer: Scorer,
-    *, decode=decode_rows, want_dl: bool = False,
+    *, kern=KERNELS, want_dl: bool = False,
 ):
-    """Decode one row group -> (docs i32 [Q, R, 128], scores f32, matched
-    bool[, dl f32]) (``exec/executor.py:_group_contrib``).
+    """Decode and score one row group -> (docs i32 [Q, R, 128], scores f32,
+    matched bool[, dl f32]) (``exec/executor.py:_group_contrib``).
 
     pool: (doc_words, freq_words, nrm_words, base, norms); rows_* and
-    ``w``: [Q, R]. ``decode`` is K3 (``decode_rows``, row-gather form:
+    ``w``: [Q, R]. One launch of K3's scored form (``kern.decode_score``:
+    ``decode_score_rows`` or its plain version) in row-gather form:
     ``rows_d`` and ``rows_f`` differ, padding and pruned rows point at the
-    all-zero sentinel row 0) or its plain version."""
+    all-zero sentinel row 0. Doc lengths come from the inline norm pool,
+    or from ``norms[docs]`` on legacy ``bn == -1`` segments."""
     doc_words, freq_words, nrm_words, base, norms = pool
     bd, bf, bn = gbits
     lead = tuple(rows_d.shape)
-    docs, f = decode(
+    out = kern.decode_score(
         doc_words, freq_words, base, rows_d.reshape(-1), rows_f.reshape(-1),
-        bd=bd, bf=bf,
+        nrm_words, rows_n.reshape(-1), norms, w.reshape(-1), avgdl,
+        bd=bd, bf=bf, bn=bn, scorer=scorer, want_dl=want_dl,
     )
-    docs = docs.reshape(lead + (BLOCK,))
-    f = f.reshape(lead + (BLOCK,))
-    if bn >= 0:
-        # pad lanes carry norm 0 -> clamp to 1 to keep tf math finite
-        # (their freq is 0, so they never match or score anyway)
-        dl = torch.clamp_min(
-            unpack_torch(nrm_words[rows_n.to(torch.int64)], bn).to(torch.float32),
-            1.0,
-        )
-    else:
-        dl = gather_clamped(norms, docs)
-    sc = score_block_torch(scorer, w[..., None], f, dl, avgdl)
-    if want_dl:
-        return docs, sc, f > 0, dl
-    return docs, sc, f > 0
+    return tuple(x.reshape(lead + (BLOCK,)) for x in out)
 
 
 def dense_contrib(dargs, dstat, scorer: Scorer, keep=None):
@@ -238,7 +233,7 @@ def _scatter_leaves(leaf_score, leaf_count, leaf, docs, sc, m):
 
 
 def _leaf_arrays(
-    pools, sets, avgdl, leaf_min, *, gbits, scorer, num_leaves, nd, decode,
+    pools, sets, avgdl, leaf_min, *, gbits, scorer, num_leaves, nd, kern,
     dense_args, dense_static, dense_keep=None,
 ):
     """(leaf_match bool [Q, L, nd], leaf_score f32 [Q, L, nd]) of the row
@@ -251,7 +246,7 @@ def _leaf_arrays(
         rows_d, rows_f, rows_n, w, leaf = rs[:5]
         docs, sc, m = group_contrib(
             pool, rows_d, rows_f, rows_n, w, gbits[gi], avgdl[gi], scorer,
-            decode=decode,
+            kern=kern,
         )
         _scatter_leaves(leaf_score, leaf_count, leaf, docs, sc, m)
     for dargs, dstat in zip(dense_args, dense_static):
@@ -277,7 +272,7 @@ def segment_body(
     scorer: Scorer,
     num_leaves: int,
     nd: int,
-    decode=decode_rows,
+    kern=KERNELS,
     dense_args=(),  # per dense span: (pool, start [Q], w [Q], norms, avgdl)
     dense_static=(),  # per dense span: (bits, leaf, ndrows, same_dl)
 ):
@@ -285,7 +280,7 @@ def segment_body(
     doc axis (``exec/executor.py:segment_body``)."""
     leaf_match, leaf_score = _leaf_arrays(
         pools, rowsets, avgdl, leaf_min, gbits=gbits, scorer=scorer,
-        num_leaves=num_leaves, nd=nd, decode=decode, dense_args=dense_args,
+        num_leaves=num_leaves, nd=nd, kern=kern, dense_args=dense_args,
         dense_static=dense_static,
     )
     match, score = fold_tree(tree, leaf_match, leaf_score, aux_match, aux_score)
@@ -362,7 +357,7 @@ def wand_body(
     nd: int,
     sample: int,
     mode: str = "exact",  # "exact" | "strict" | "approx"
-    decode=decode_rows,
+    kern=KERNELS,
     dense_args=(),  # per dense span: (pool, start, w, norms, avgdl, ub [Q, ndrows], other [Q])
     dense_static=(),
 ):
@@ -374,7 +369,7 @@ def wand_body(
     relative epsilon, "approx" returns the sampled pass's top-k."""
     kw = dict(
         gbits=gbits, scorer=scorer, num_leaves=num_leaves, nd=nd,
-        decode=decode, dense_args=dense_args, dense_static=dense_static,
+        kern=kern, dense_args=dense_args, dense_static=dense_static,
     )
 
     def fold_pass(sets, dense_keep):

@@ -31,7 +31,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-KERNELS = ("dense_scan_rowmax", "dma_row_slices", "decode_rows")
+KERNELS = (
+    "dense_scan_rowmax", "dma_row_slices", "decode_rows", "decode_score_rows",
+)
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -98,13 +100,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.irs_dense_scan_rowmax.argtypes = [
         PP, PLL, PI, I, P, P, P, I, I, I, I, F, F, F, I, I, P, P, P,
     ]
-    lib.irs_dma_row_slices.argtypes = [PP, PP, PLL, PI, I, P, I, I, P]
+    lib.irs_dma_row_slices.argtypes = [PP, PLL, PI, I, P, I, I, P, P]
     lib.irs_decode_rows.argtypes = [
         P, P, P, P, P, LL, LL, I, I, I, P, P, P,
     ]
+    lib.irs_decode_score_rows.argtypes = [
+        P, P, P, P, P, LL, LL, I, I, I,  # as irs_decode_rows
+        P, P, LL, I, P, I,  # nrm_words, rows_n, nn_rows, bn, norms, nd_pad
+        P, P, F, I, F, F,  # w, avgdl_dev, avgdl, kind, kb, c0
+        P, P, P, P, P,  # docs, scores, matched, dl, stream
+    ]
+    lib.irs_noop.argtypes = [P]
     for fn in (
         lib.irs_dense_scan_rowmax, lib.irs_dma_row_slices,
-        lib.irs_decode_rows,
+        lib.irs_decode_rows, lib.irs_decode_score_rows, lib.irs_noop,
     ):
         fn.restype = ctypes.c_int
     lib.irs_error_string.argtypes = [I]
@@ -134,3 +143,10 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.irs_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def launch_noop(stream: int) -> None:
+    """Launch the library's empty kernel on ``stream`` (a raw CUDA stream
+    handle): what one launch costs the device, for a timing's floor."""
+    lib = library()
+    check(lib, lib.irs_noop(stream), "noop")

@@ -25,17 +25,10 @@
 enum ScoreKind {
   kBM25 = 0,        // w * f / max(f + (c0 + (kb / avgdl) * dl), 1e-9)
   kBM25NoLen = 1,   // b == 0: w * f / max(f + c0, 1e-9)
-  kTFIDF = 2,       // w * sqrt(f) * rsqrt(max(dl, 1))
+  kTFIDF = 2,       // K1: w * sqrt(f) * rsqrt(max(dl, 1)); K3: / sqrt(..)
   kTFIDFNoNorm = 3, // w * sqrt(f)
   kBoost = 4,       // f > 0 ? w : 0
 };
-
-__device__ __forceinline__ uint32_t lane_bits(const uint32_t* row, int b,
-                                              int j) {
-  const int wpb = 4 * b;
-  const uint32_t mask = b == 32 ? IRS_FULL_MASK : ((1u << b) - 1u);
-  return (row[j % wpb] >> ((j / wpb) * b)) & mask;
-}
 
 // ---------------------------------------------------------------------------
 // K1: fused dense-grid row max.
@@ -339,95 +332,272 @@ k1_dense_scan_rowmax(SpanPools sp, int S, const int32_t* __restrict__ starts,
 //
 // Replaces iresearch_tpu/ops/dma_gather.py:dma_row_slices (Pallas, one
 // async DMA per (query, pool)). out_p[q] = pool_p[starts[q, p] :
-// starts[q, p] + R]: the window is R * wpb_p contiguous words, so each
-// block copies one (query, pool) window with 16-byte vector loads when
-// the row width allows it.
+// starts[q, p] + R]: window (q, p) is R * wpb_p contiguous words. The
+// pools carry a DSLICE_PAD zero tail so windows never clamp; rows outside
+// the pool are written as zeros (a guard, never hit by a plan).
 //
-// Bound: device memory (a pure copy, 2 * R * 16 * b bytes per window).
-// The pools carry a DSLICE_PAD zero tail so windows never clamp; rows
-// outside the pool are written as zeros (a guard, never hit by a plan).
+// Bound: device memory in principle (a pure copy, 2 * R * 4 * wpb bytes
+// per window), but the mix's two calls move 4.3 MB in all, ~1.3 us at
+// 3.35 TB/s, which is less than one kernel launch takes on the device:
+// what bounds it is the launch and how many SMs the copy is spread over.
+// The first design ran one block per (query, pool): 20 blocks for the
+// 5-query group on 132 SMs, an 8 KB window serialised in one block and a
+// scalar 4-byte copy for the one-word `base` pool. This design runs a flat
+// grid over K2_CHUNK-word pieces of all (pool, query) windows, found
+// through a per-pool offset table in the by-value argument; each thread
+// moves 16 bytes. A window is 4-byte aligned only (wpb = 1, any start row):
+// where source and destination agree modulo 16 its head and tail go as
+// words and its middle as uint4, else it goes as words.
+//
+// No bulk-copy engine (cp.async.bulk / TMA): windows are 256 B-8 KB at
+// per-query offsets, so a descriptor and an mbarrier round trip per window
+// would cost more than the loads they replace, and nothing is staged in
+// shared memory: the data goes from registers straight back to memory.
+//
+// What bounds it now (NVIDIA H100, chip_smoke.py and PERF.md): latency.
+// A launch takes ~2.2 us of device time replayed from a CUDA graph (~3 us
+// inside a pass, inputs cold) against ~1.0 us for an empty kernel and
+// 1.3 us of bytes for both calls together: one dependent chain of starts
+// -> words -> store per thread, with nothing left to overlap it with. The
+// host takes ten times as long to enqueue a call (enqueue_ms there). 40
+// registers, an 8-byte spill (the by-value table indexed by the pool
+// found at run time).
+#define K2_THREADS 256
+#define K2_CHUNK (K2_THREADS * 4)  // words per block: 16 bytes a thread
+
 struct SlicePools {
   const uint32_t* pool[IRS_MAX_SLICE_POOLS];
   uint32_t* out[IRS_MAX_SLICE_POOLS];
   long long rows[IRS_MAX_SLICE_POOLS];
   int wpb[IRS_MAX_SLICE_POOLS];
+  int chunks[IRS_MAX_SLICE_POOLS];     // pieces per window
+  long long first[IRS_MAX_SLICE_POOLS + 1];  // first block of each pool
 };
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(K2_THREADS)
 k2_dma_row_slices(SlicePools sp, int P, const int32_t* __restrict__ starts,
                   int R) {
-  const int q = blockIdx.x;
-  const int p = blockIdx.y;
+  const long long blk = blockIdx.x;
+  int p = 0;
+  while (p + 1 < P && blk >= sp.first[p + 1]) ++p;
+  const long long local = blk - sp.first[p];
+  const int q = (int)(local / sp.chunks[p]);  // once per block
+  const int piece = (int)(local - (long long)q * sp.chunks[p]);
   const int wpb = sp.wpb[p];
-  const long long st = starts[q * P + p];
-  const long long n = (long long)R * wpb;
-  const uint32_t* src = sp.pool[p] + st * wpb;
-  uint32_t* dst = sp.out[p] + (long long)q * n;
+  const long long st = starts[(long long)q * P + p];
+  const long long n = (long long)R * wpb;  // words per window
+  const long long lo = (long long)piece * K2_CHUNK;
+  const int len = (int)min((long long)K2_CHUNK, n - lo);
+  const uint32_t* src = sp.pool[p] + st * wpb + lo;
+  uint32_t* dst = sp.out[p] + (long long)q * n + lo;
+  const int t = threadIdx.x;
   if (st < 0 || st + R > sp.rows[p]) {
-    for (long long i = threadIdx.x; i < n; i += blockDim.x) {
-      const long long r = st + i / wpb;
+    for (int i = t; i < len; i += K2_THREADS) {
+      const long long r = st + (lo + i) / wpb;
       dst[i] = (r >= 0 && r < sp.rows[p]) ? src[i] : 0u;
     }
     return;
   }
-  const bool vec = (wpb % 4 == 0) && ((uintptr_t)src % 16 == 0) &&
-                   ((uintptr_t)dst % 16 == 0);
-  if (vec) {
-    const uint4* s4 = (const uint4*)src;
-    uint4* d4 = (uint4*)dst;
-    for (long long i = threadIdx.x; i < n / 4; i += blockDim.x) d4[i] = s4[i];
-  } else {
-    for (long long i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  const int ms = (int)(((uintptr_t)src >> 2) & 3);  // words past a 16 B line
+  if (ms != (int)(((uintptr_t)dst >> 2) & 3)) {
+    for (int i = t; i < len; i += K2_THREADS) dst[i] = __ldg(src + i);
+    return;
   }
+  const int head = min((4 - ms) & 3, len);
+  const int nvec = (len - head) >> 2;
+  const uint4* s4 = (const uint4*)(src + head);
+  uint4* d4 = (uint4*)(dst + head);
+  for (int i = t; i < nvec; i += K2_THREADS) d4[i] = __ldg(s4 + i);
+  // head and tail words: fewer than 4 each
+  const int tail0 = head + 4 * nvec;
+  if (t < head) dst[t] = __ldg(src + t);
+  if (t < len - tail0) dst[tail0 + t] = __ldg(src + tail0 + t);
 }
 
 // ---------------------------------------------------------------------------
-// K3: postings block decode.
+// K3: postings block decode, plain and scored.
 //
 // Replaces iresearch_tpu/ops/decode.py:decode_rows_pallas (and the XLA
 // decode of exec/executor.py:_group_contrib). For output row r: unpack the
 // doc-delta lanes of doc_words[rows_d[r]] and the freq lanes of
 // freq_words[rows_f[r]]; docs = base[rows_d[r]] + inclusive prefix sum of
-// the deltas (int32, wrapping like XLA), freqs = f32(int32(f)).
+// the deltas (int32, wrapping like XLA), freqs = f32(int32(f)). The scored
+// form (k3_decode_score_rows) goes on in registers with what the JAX
+// package left to XLA to fuse after the decode (_group_contrib): the doc
+// lengths, from the row's inline norm block (max(f32(int32(n)), 1)) or, on
+// segments without norm pools (bn == -1), from norms[clamp(doc)]; the
+// score in search/scorers.py:score_block_torch's operation order (IEEE
+// divide and square root, --fmad=false: bit-identical for BM25); and the
+// match flag f > 0.
 //
-// Bound: device memory (16 * (bd + bf) bytes in, 1 KB out per row). One
-// 128-thread block per row, one lane per thread: the scan is a warp
-// shuffle scan plus one cross-warp step through 16 bytes of shared
-// memory, replacing the Pallas kernel's [128, 128] masked-sum prefix.
-__global__ void __launch_bounds__(IRS_BLOCK)
-k3_decode_rows(const uint32_t* __restrict__ doc_words,
-               const uint32_t* __restrict__ freq_words,
-               const int32_t* __restrict__ base,
-               const int32_t* __restrict__ rows_d,
-               const int32_t* __restrict__ rows_f, long long nd_rows,
-               long long nf_rows, int bd, int bf, int32_t* __restrict__ docs,
-               float* __restrict__ freqs) {
-  __shared__ uint32_t warp_sum[IRS_BLOCK / 32];
-  const long long r = blockIdx.x;
-  const int j = threadIdx.x;
-  const int lane = j & 31;
-  const int warp = j >> 5;
-  const long long rd = rows_d[r];
-  const long long rf = rows_f[r];
-  // rows outside the pools decode as the zero sentinel (a guard only)
-  const bool okd = rd >= 0 && rd < nd_rows;
-  const bool okf = rf >= 0 && rf < nf_rows;
+// Bound: device memory in principle (16 * (bd + bf [+ bn]) bytes in, 1 KB
+// out per row; the scored form 1,152 B out, 1,664 B with dl), but a call
+// decodes a few thousand rows (5-9 MB, 2-3 us at 3.35 TB/s), which is
+// about what one kernel launch takes on the device: the launch bounds it,
+// and folding the work of the ~10 PyTorch kernels that followed each
+// decode into the same launch is what the scored form is for.
+//
+// Design: a warp per row, four lanes per thread, K3_WARPS rows per block.
+// Thread t owns lanes 4t..4t+3. In the planar layout they are the four
+// consecutive words 4 (t mod b)..+3 at the common shift (t / b) * b (b a
+// power of two: shifts and masks only), so a thread's lanes are one
+// 16-byte load, one shift and one mask per pool. The prefix sum is three
+// adds in the thread and a five-step shuffle scan over the warp: no shared
+// memory, no block barrier. A thread stores one int4 of docs, one float4
+// of freqs or scores (512 B per warp, coalesced) and, in the scored form,
+// its four match flags as one word. The first design ran a 128-thread
+// block per row with a block barrier, a serial cross-warp add and a
+// run-time % and / per lane.
+//
+// What bounds it now (NVIDIA H100, chip_smoke.py and PERF.md): latency, as
+// K2. A launch of the plain form takes ~2.7 us of device time replayed
+// from a CUDA graph, of the scored form ~4 us (~4.2 us inside a pass,
+// inputs cold), against ~1.0 us for an empty kernel: row id -> words ->
+// (norms at the decoded docs ->) store is two or three dependent memory
+// round trips, and 600 blocks are one wave. The host takes ten times as
+// long to enqueue a call (enqueue_ms there). 20 and 34 registers, no
+// spills.
+#define K3_WARPS 8  // rows per block, one warp each
 
-  uint32_t x = okd ? lane_bits(doc_words + rd * (4 * bd), bd, j) : 0u;
+// lanes 4t..4t+3 of a b-bit row (b = 1 << lb): one 16-byte load
+__device__ __forceinline__ uint4 lanes4(const uint32_t* row, int b, int lb,
+                                        int t) {
+  uint4 v = __ldg((const uint4*)row + (t & (b - 1)));
+  const int sh = (t >> lb) << lb;
+  const uint32_t m = width_mask(b);
+  v.x = (v.x >> sh) & m;
+  v.y = (v.y >> sh) & m;
+  v.z = (v.z >> sh) & m;
+  v.w = (v.w >> sh) & m;
+  return v;
+}
+
+struct DecodeArgs {
+  const uint32_t* doc_words;
+  const uint32_t* freq_words;
+  const int32_t* base;
+  const int32_t* rows_d;
+  const int32_t* rows_f;
+  long long nd_rows, nf_rows;
+  int R, bd, lbd, bf, lbf;
+};
+
+// This thread's four docs (as the wrapping u32 sums) and freqs of output
+// row r; rows outside the pools decode as zeros (a guard only).
+__device__ __forceinline__ void decode_lanes(const DecodeArgs& a, long long r,
+                                             int t, uint4* docs, float4* f) {
+  const long long rd = a.rows_d[r];
+  const long long rf = a.rows_f[r];
+  const bool okd = rd >= 0 && rd < a.nd_rows;
+  const bool okf = rf >= 0 && rf < a.nf_rows;
+  uint4 d = make_uint4(0u, 0u, 0u, 0u);
+  if (okd) d = lanes4(a.doc_words + rd * (4 << a.lbd), a.bd, a.lbd, t);
+  d.y += d.x;
+  d.z += d.y;
+  d.w += d.z;
+  uint32_t run = d.w;  // inclusive scan of the threads' sums over the warp
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t y = __shfl_up_sync(IRS_FULL_MASK, x, off);
-    if (lane >= off) x += y;
+    const uint32_t y = __shfl_up_sync(IRS_FULL_MASK, run, off);
+    if (t >= off) run += y;
   }
-  if (lane == 31) warp_sum[warp] = x;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) x += warp_sum[w];
-  const uint32_t b0 = okd ? (uint32_t)base[rd] : 0u;
-  docs[r * IRS_BLOCK + j] = (int32_t)(b0 + x);
-
-  const uint32_t f = okf ? lane_bits(freq_words + rf * (4 * bf), bf, j) : 0u;
-  freqs[r * IRS_BLOCK + j] = (float)(int32_t)f;
+  const uint32_t before = (okd ? (uint32_t)a.base[rd] : 0u) + (run - d.w);
+  *docs = make_uint4(before + d.x, before + d.y, before + d.z, before + d.w);
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (okf) v = lanes4(a.freq_words + rf * (4 << a.lbf), a.bf, a.lbf, t);
+  *f = make_float4((float)(int32_t)v.x, (float)(int32_t)v.y,
+                   (float)(int32_t)v.z, (float)(int32_t)v.w);
 }
+
+__global__ void __launch_bounds__(K3_WARPS * 32)
+k3_decode_rows(DecodeArgs a, int32_t* __restrict__ docs,
+               float* __restrict__ freqs) {
+  const int t = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * K3_WARPS + (threadIdx.x >> 5);
+  if (r >= a.R) return;  // a whole warp: the shuffles stay converged
+  uint4 d;
+  float4 f;
+  decode_lanes(a, r, t, &d, &f);
+  ((uint4*)docs)[r * 32 + t] = d;
+  ((float4*)freqs)[r * 32 + t] = f;
+}
+
+// score_block_torch's expression for one lane (TFIDF divides here, where
+// K1's score_lane multiplies by rsqrt as the fused scan's expression does)
+__device__ __forceinline__ float score_block_lane(int kind, float w, float f,
+                                                  float dl, float c1,
+                                                  float c0) {
+  switch (kind) {
+    case kBM25:
+      return score_lane(kBM25, w, f, c1 * dl + c0, c0);
+    case kTFIDF:
+      return w * sqrtf(f) / sqrtf(fmaxf(dl, 1.0f));
+    case kBoost:
+      return w * (f > 0.0f ? 1.0f : 0.0f);
+    default:
+      return score_lane(kind, w, f, 0.0f, c0);
+  }
+}
+
+struct ScoreArgs {
+  const uint32_t* nrm_words;  // inline norm pool, bn >= 0
+  const int32_t* rows_n;
+  long long nn_rows;
+  int bn, lbn;         // bn == -1: doc lengths from norms[doc]
+  const float* norms;  // f32 [nd_pad], bn == -1
+  int nd_pad;
+  const float* w;          // f32 [R]
+  const float* avgdl_dev;  // one f32 on the device, or null: avgdl
+  float avgdl, kb, c0;
+  int kind;
+};
+
+__global__ void __launch_bounds__(K3_WARPS * 32)
+k3_decode_score_rows(DecodeArgs a, ScoreArgs s, int32_t* __restrict__ docs,
+                     float* __restrict__ scores, uint8_t* __restrict__ matched,
+                     float* __restrict__ dl_out) {
+  const int t = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * K3_WARPS + (threadIdx.x >> 5);
+  if (r >= a.R) return;
+  uint4 d;
+  float4 f;
+  decode_lanes(a, r, t, &d, &f);
+  float4 dl;
+  if (s.bn >= 0) {
+    const long long rn = s.rows_n[r];
+    uint4 n = make_uint4(0u, 0u, 0u, 0u);
+    if (rn >= 0 && rn < s.nn_rows)
+      n = lanes4(s.nrm_words + rn * (4 << s.lbn), s.bn, s.lbn, t);
+    // pad lanes carry norm 0: at least 1 keeps the tf math finite
+    dl = make_float4(fmaxf((float)(int32_t)n.x, 1.0f),
+                     fmaxf((float)(int32_t)n.y, 1.0f),
+                     fmaxf((float)(int32_t)n.z, 1.0f),
+                     fmaxf((float)(int32_t)n.w, 1.0f));
+  } else {
+    const int hi = s.nd_pad - 1;
+    dl = make_float4(__ldg(s.norms + min(max((int32_t)d.x, 0), hi)),
+                     __ldg(s.norms + min(max((int32_t)d.y, 0), hi)),
+                     __ldg(s.norms + min(max((int32_t)d.z, 0), hi)),
+                     __ldg(s.norms + min(max((int32_t)d.w, 0), hi)));
+  }
+  const float w = s.w[r];
+  const float avgdl = s.avgdl_dev ? __ldg(s.avgdl_dev) : s.avgdl;
+  const float c1 = s.kind == kBM25 ? s.kb / avgdl : 0.0f;
+  ((uint4*)docs)[r * 32 + t] = d;
+  ((float4*)scores)[r * 32 + t] =
+      make_float4(score_block_lane(s.kind, w, f.x, dl.x, c1, s.c0),
+                  score_block_lane(s.kind, w, f.y, dl.y, c1, s.c0),
+                  score_block_lane(s.kind, w, f.z, dl.z, c1, s.c0),
+                  score_block_lane(s.kind, w, f.w, dl.w, c1, s.c0));
+  ((uint32_t*)matched)[r * 32 + t] =
+      (f.x > 0.0f ? 1u : 0u) | (f.y > 0.0f ? 0x100u : 0u) |
+      (f.z > 0.0f ? 0x10000u : 0u) | (f.w > 0.0f ? 0x1000000u : 0u);
+  if (dl_out) ((float4*)dl_out)[r * 32 + t] = dl;
+}
+
+// An empty kernel: its device time per launch is the floor under every
+// kernel above whose bytes take less than a launch does.
+__global__ void irs_noop_kernel() {}
 
 // ---------------------------------------------------------------------------
 // C entry points (ctypes).
@@ -484,33 +654,102 @@ int irs_dense_scan_rowmax(const void* const* pools, const long long* rows,
   return (int)cudaGetLastError();
 }
 
-int irs_dma_row_slices(const void* const* pools, void* const* outs,
-                       const long long* rows, const int* wpb, int P,
-                       const void* starts, int Q, int R, void* stream) {
-  if (P < 1 || P > IRS_MAX_SLICE_POOLS || Q < 1 || Q > 65535 || R < 1)
+// Window p of query q lies at out + (the pools before it, each rounded up
+// to 16 bytes) + q * R * wpb_p words: ops/dma_gather.py cuts the same views.
+int irs_dma_row_slices(const void* const* pools, const long long* rows,
+                       const int* wpb, int P, const void* starts, int Q,
+                       int R, void* out, void* stream) {
+  if (P < 1 || P > IRS_MAX_SLICE_POOLS || Q < 1 || R < 1)
     return (int)cudaErrorInvalidValue;
   SlicePools sp = {};
+  long long words = 0, blocks = 0;
   for (int p = 0; p < P; ++p) {
+    if (wpb[p] < 1) return (int)cudaErrorInvalidValue;
+    const long long n = (long long)R * wpb[p];
     sp.pool[p] = (const uint32_t*)pools[p];
-    sp.out[p] = (uint32_t*)outs[p];
+    sp.out[p] = (uint32_t*)out + words;
     sp.rows[p] = rows[p];
     sp.wpb[p] = wpb[p];
+    sp.chunks[p] = (int)((n + K2_CHUNK - 1) / K2_CHUNK);
+    sp.first[p] = blocks;
+    words += ((long long)Q * n + 3) / 4 * 4;
+    blocks += (long long)Q * sp.chunks[p];
   }
-  dim3 grid(Q, P);
-  k2_dma_row_slices<<<grid, 256, 0, (cudaStream_t)stream>>>(
+  sp.first[P] = blocks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  k2_dma_row_slices<<<(unsigned)blocks, K2_THREADS, 0, (cudaStream_t)stream>>>(
       sp, P, (const int32_t*)starts, R);
   return (int)cudaGetLastError();
+}
+
+static int log2_width(int b) {
+  for (int lb = 0; lb <= 5; ++lb)
+    if ((1 << lb) == b) return lb;
+  return -1;
+}
+
+static bool decode_args(DecodeArgs* a, const void* doc_words,
+                        const void* freq_words, const void* base,
+                        const void* rows_d, const void* rows_f,
+                        long long nd_rows, long long nf_rows, int R, int bd,
+                        int bf) {
+  *a = DecodeArgs{(const uint32_t*)doc_words, (const uint32_t*)freq_words,
+        (const int32_t*)base, (const int32_t*)rows_d, (const int32_t*)rows_f,
+        nd_rows, nf_rows, R, bd, log2_width(bd), bf, log2_width(bf)};
+  return R >= 1 && a->lbd >= 0 && a->lbf >= 0 &&
+         (uintptr_t)doc_words % 16 == 0 && (uintptr_t)freq_words % 16 == 0;
 }
 
 int irs_decode_rows(const void* doc_words, const void* freq_words,
                     const void* base, const void* rows_d, const void* rows_f,
                     long long nd_rows, long long nf_rows, int R, int bd,
                     int bf, void* docs, void* freqs, void* stream) {
-  if (R < 1) return (int)cudaErrorInvalidValue;
-  k3_decode_rows<<<R, IRS_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)doc_words, (const uint32_t*)freq_words,
-      (const int32_t*)base, (const int32_t*)rows_d, (const int32_t*)rows_f,
-      nd_rows, nf_rows, bd, bf, (int32_t*)docs, (float*)freqs);
+  DecodeArgs a;
+  if (!decode_args(&a, doc_words, freq_words, base, rows_d, rows_f, nd_rows,
+                   nf_rows, R, bd, bf) ||
+      (uintptr_t)docs % 16 != 0 || (uintptr_t)freqs % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  k3_decode_rows<<<(R + K3_WARPS - 1) / K3_WARPS, K3_WARPS * 32, 0,
+                   (cudaStream_t)stream>>>(a, (int32_t*)docs, (float*)freqs);
+  return (int)cudaGetLastError();
+}
+
+// bn >= 0: doc lengths from nrm_words[rows_n]; bn == -1: from norms
+// (f32 [nd_pad]) at the decoded docs. avgdl_dev, when not null, points at
+// one f32 on the device and takes the place of avgdl. dl may be null.
+int irs_decode_score_rows(const void* doc_words, const void* freq_words,
+                          const void* base, const void* rows_d,
+                          const void* rows_f, long long nd_rows,
+                          long long nf_rows, int R, int bd, int bf,
+                          const void* nrm_words, const void* rows_n,
+                          long long nn_rows, int bn, const void* norms,
+                          int nd_pad, const void* w, const void* avgdl_dev,
+                          float avgdl, int kind, float kb, float c0,
+                          void* docs, void* scores, void* matched, void* dl,
+                          void* stream) {
+  DecodeArgs a;
+  if (!decode_args(&a, doc_words, freq_words, base, rows_d, rows_f, nd_rows,
+                   nf_rows, R, bd, bf) ||
+      (uintptr_t)docs % 16 != 0 || (uintptr_t)scores % 16 != 0 ||
+      (uintptr_t)matched % 4 != 0 || (uintptr_t)dl % 16 != 0 ||
+      kind < kBM25 || kind > kBoost)
+    return (int)cudaErrorInvalidValue;
+  ScoreArgs s = {(const uint32_t*)nrm_words, (const int32_t*)rows_n, nn_rows,
+                 bn, bn >= 0 ? log2_width(bn) : 0, (const float*)norms,
+                 nd_pad, (const float*)w, (const float*)avgdl_dev, avgdl, kb,
+                 c0, kind};
+  if (bn >= 0 ? (s.lbn < 0 || !nrm_words || !rows_n ||
+                 (uintptr_t)nrm_words % 16 != 0)
+              : (bn != -1 || !norms || nd_pad < 1))
+    return (int)cudaErrorInvalidValue;
+  k3_decode_score_rows<<<(R + K3_WARPS - 1) / K3_WARPS, K3_WARPS * 32, 0,
+                         (cudaStream_t)stream>>>(
+      a, s, (int32_t*)docs, (float*)scores, (uint8_t*)matched, (float*)dl);
+  return (int)cudaGetLastError();
+}
+
+int irs_noop(void* stream) {
+  irs_noop_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

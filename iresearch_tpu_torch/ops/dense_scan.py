@@ -14,6 +14,7 @@ as in the JAX package, where the rescore is XLA).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -83,8 +84,10 @@ def dense_scan_rowmax_ref(
     return amax, torch.clamp_max(first, BLOCK - 1).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def kernel_scorer(scorer: Scorer):
-    """(kind, kb, c0) of the kernel's ``score_expr`` (enum ScoreKind)."""
+    """(kind, kb, c0) of the kernel's ``score_expr`` (enum ScoreKind);
+    remembered per scorer (the scorers are frozen dataclasses)."""
     if isinstance(scorer, BM25):
         kbv, c0 = bm25_consts(scorer)
         return (0 if scorer.b != 0.0 else 1), kbv, c0

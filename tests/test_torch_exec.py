@@ -678,7 +678,7 @@ def _body_decode_flat(r):
     from iresearch_tpu.exec import candidates as jc
 
     want = jc.decode_flat(r.jpools, r.jrows, r.javgdl, r.gbits, r.scorer)
-    got = tc.decode_flat(r.pools, r.rows, r.avgdl, r.gbits, r.pscorer, decode=tex.decode_rows)
+    got = tc.decode_flat(r.pools, r.rows, r.avgdl, r.gbits, r.pscorer, kern=tex.KERNELS)
     for g, w in zip(got, want):
         if g.dtype == torch.float32:
             np.testing.assert_allclose(g[0].numpy(), np.asarray(w), rtol=1e-6, atol=0.0)
@@ -693,7 +693,7 @@ def _body_direct_topk(r):
         want = jc.direct_topk(r.jpools, r.jrows, r.javgdl, r.jalive, gbits=r.gbits,
                               scorer=r.scorer, k=k)
         got = tc.direct_topk(r.pools, r.rows, r.avgdl, r.alive, gbits=r.gbits,
-                             scorer=r.pscorer, k=k, decode=tex.decode_rows)
+                             scorer=r.pscorer, k=k, kern=tex.KERNELS)
         _same_topk(got, want)
 
 
@@ -703,7 +703,7 @@ def _body_sorted_topk(r):
     for k in (1, 10):
         want = jc.sorted_topk(r.jpools, r.jrows, r.javgdl, r.jleafmin, r.jalive, k=k, **r.jkw)
         got = tc.sorted_topk(r.pools, r.rows, r.avgdl, r.leafmin, r.alive, k=k,
-                             decode=tex.decode_rows, **r.kw)
+                             kern=tex.KERNELS, **r.kw)
         _same_topk(got, want)
 
 
@@ -737,7 +737,7 @@ def _body_join_topk(r):
                             group_leaf=gl, dense_args=r.jdargs, dense_static=r.dstat, **r.jkw)
         got = tc.join_topk(r.pools, r.rows, r.avgdl, r.leafmin, r.alive,
                            torch.from_numpy(r.nreal)[None], k=k, driver_gi=p.driver_gi,
-                           group_leaf=gl, decode=tex.decode_rows, dense_args=r.dargs,
+                           group_leaf=gl, kern=tex.KERNELS, dense_args=r.dargs,
                            dense_static=r.dstat, **r.kw)
         _same_topk(got, want)
 
@@ -766,7 +766,7 @@ def _body_gridmix_topk(r):
         want = jc.gridmix_topk(r.jpools, r.jrows, r.javgdl, r.jleafmin, None, k=k,
                                nd=p.nd_pad, dense_args=r.jdargs, dense_static=r.dstat, **r.jkw)
         got = tc.gridmix_topk(r.pools, r.rows, r.avgdl, r.leafmin, None, k=k,
-                              nd=p.nd_pad, decode=tex.decode_rows, dense_args=r.dargs,
+                              nd=p.nd_pad, kern=tex.KERNELS, dense_args=r.dargs,
                               dense_static=r.dstat, **r.kw)
         _same_topk(got, want)
 
@@ -784,7 +784,7 @@ def _body_wand_theta(r):
             want = jc.wand_theta(r.jpools, jsorted, r.javgdl, r.jleafmin, None, k=5,
                                  sample=2, mode=mode, wand_mode=wand_mode, **r.jkw)
             got = tc.wand_theta(r.pools, tsorted, r.avgdl, r.leafmin, None, k=5,
-                                sample=2, mode=mode, decode=tex.decode_rows,
+                                sample=2, mode=mode, kern=tex.KERNELS,
                                 wand_mode=wand_mode, **r.kw)
             np.testing.assert_allclose(got.numpy(), np.asarray(want)[None], rtol=1e-5)
 
@@ -798,7 +798,7 @@ def _body_candidate_body(r):
             want = jc.candidate_body(r.jpools, r.jrows, r.javgdl, r.jleafmin, r.jalive,
                                      **kw, **r.jkw)
             got = tc.candidate_body(r.pools, r.rows, r.avgdl, r.leafmin, r.alive,
-                                    decode=tex.decode_rows, **kw, **r.kw)
+                                    kern=tex.KERNELS, **kw, **r.kw)
             _same_topk(got, want)
 
 
@@ -821,6 +821,31 @@ def _body_dslice_topk(r):
                                         wand_mode="exact", single=True)
     assert tier == "dslice" and kwargs["R"] == R
     _same_topk(fn(tex.PLAIN, *args, **kwargs), want)
+
+
+@pytest.mark.parametrize("bn", [4, -1], ids=["inline_norms", "norms_gather"])
+@pytest.mark.parametrize("scorer", [BM25(), TFIDF()], ids=["bm25", "tfidf"])
+def test_decode_score_rows_matches_jax_group_contrib(jax_decode, scorer, bn):
+    """K3's scored form (its plain version, on CPU tensors) vs the JAX
+    package's ``_group_contrib`` on the same seeded pools, the JAX decode
+    through XLA and through the Pallas kernel in interpret mode: docs,
+    match flags and doc lengths exact, scores to rtol 1e-6."""
+    from iresearch_tpu_torch.ops.decode import decode_score_rows
+    from test_torch_kernels import k3_args, k3_inputs
+
+    bd, bf = 8, 2
+    r = k3_inputs(71, bd, bf, bn)
+    pool = tuple(jnp.asarray(r[n]) for n in ("doc_words", "freq_words", "nrm_words", "base", "norms"))
+    want = jex._group_contrib(
+        pool, *(jnp.asarray(r[n]) for n in ("rows_d", "rows_f", "rows_n", "w")),
+        bd, bf, bn, jnp.float32(41.25), scorer, want_dl=True,
+    )
+    got = decode_score_rows(*k3_args(r, bn), 41.25, bd=bd, bf=bf, bn=bn,
+                            scorer=to_port(scorer), want_dl=True)
+    for i in (0, 2, 3):
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-6, atol=0.0)
+    assert np.asarray(want[2]).any()
 
 
 # body -> (reader fixture, filter, planner knobs, DeviceQuery kwargs)

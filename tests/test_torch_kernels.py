@@ -1,6 +1,7 @@
-"""The three kernels' plain PyTorch versions vs the JAX package's Pallas
-kernels (interpret mode on the CPU) and XLA twins, and the kernels
-themselves vs their plain versions on the card (``cuda`` marker). Scorers
+"""The kernels' plain PyTorch versions vs the JAX package's Pallas
+kernels (interpret mode on the CPU) and XLA twins, K3's scored form vs
+the composition it replaced, and the kernels themselves vs their plain
+versions on the card (``cuda`` marker). Scorers
 are built with the JAX package and handed to the port through
 ``to_port``."""
 
@@ -183,11 +184,123 @@ def test_decode_plain_matches_pallas_interpret(bd, bf):
     np.testing.assert_array_equal(gf.numpy(), np.asarray(wf))
 
 
+def k3_inputs(seed, bd, bf, bn, *, rows=40, R=24, base_hi=1000):
+    """Seeded K3 inputs as numpy: doc/freq/norm pools of ``rows`` blocks
+    (row 0 the all-zero sentinel), bases, R row ids per pool with repeats
+    and the sentinel among them, one weight per output row, and f32 norms
+    covering every doc that can decode (for ``bn == -1``)."""
+    rng = np.random.default_rng(seed)
+
+    def lanes(b, cap):
+        x = rng.integers(0, 1 << min(b, cap), size=(rows, BLOCK), dtype=np.uint64)
+        x[0] = 0
+        return x.astype(np.uint32)
+
+    deltas, freqs = lanes(bd, 12), lanes(bf, 6)
+    freqs[rng.random(freqs.shape) < 0.3] = 0
+    base = rng.integers(0, base_hi, rows).astype(np.int32)
+    base[0] = 0
+    r = {
+        "doc_words": pack_blocks(deltas, bd), "freq_words": pack_blocks(freqs, bf),
+        "base": base, "w": rng.uniform(0.5, 3.0, R).astype(np.float32),
+        "norms": rng.integers(1, 300, base_hi + BLOCK * (1 << min(bd, 12))).astype(np.float32),
+    }
+    for name in ("rows_d", "rows_f", "rows_n"):
+        ids = rng.integers(0, rows, R).astype(np.int32)
+        ids[R // 2] = 0  # the sentinel
+        ids[-1] = ids[0]  # a repeated row
+        r[name] = ids
+    r["nrm_words"] = pack_blocks(lanes(max(bn, 1), 9), max(bn, 1))
+    return r
+
+
+def k3_args(r, bn, to=lambda t: t):
+    """``decode_score_rows``'s positional arguments up to ``w``, as tensors."""
+    t = {k: to(_t(v)) for k, v in r.items()}
+    return (t["doc_words"], t["freq_words"], t["base"], t["rows_d"], t["rows_f"],
+            t["nrm_words"] if bn >= 0 else None, t["rows_n"],
+            None if bn >= 0 else t["norms"], t["w"])
+
+
+K3_SCORERS = {
+    "bm25": BM25(), "bm25_k09_b04": BM25(k=0.9, b=0.4), "bm15": BM25(b=0.0),
+    "tfidf": TFIDF(), "tfidf_nonorm": TFIDF(with_norms=False), "boost": BoostScore(),
+}
+
+
+def _old_composition(a, avgdl, *, bd, bf, bn, scorer):
+    """What ``group_contrib`` ran before the scored form: K3's plain
+    version, then the norm unpack or gather, the clamp, the scorer and
+    ``f > 0`` as separate PyTorch operations."""
+    from iresearch_tpu_torch.formats.bitpack import unpack_torch
+    from iresearch_tpu_torch.search.scorers import score_block_torch
+
+    dw, fw, base, rd, rf, nw, rn, norms, w = a
+    docs, f = dc.decode_rows_ref(dw, fw, base, rd, rf, bd=bd, bf=bf)
+    if bn >= 0:
+        dl = torch.clamp_min(unpack_torch(nw[rn.to(torch.int64)], bn).to(torch.float32), 1.0)
+    else:
+        dl = norms[torch.clamp(docs, 0, norms.shape[0] - 1).to(torch.int64)]
+    return docs, score_block_torch(scorer, w[:, None], f, dl, avgdl), f > 0, dl
+
+
+@pytest.mark.parametrize("want_dl", [False, True], ids=["", "want_dl"])
+@pytest.mark.parametrize("bn", [8, -1], ids=["inline_norms", "norms_gather"])
+@pytest.mark.parametrize("scorer", sorted(K3_SCORERS))
+def test_decode_score_plain_equals_old_composition(scorer, bn, want_dl):
+    """``decode_score_rows`` on CPU tensors (its plain version) equals the
+    decode, norm unpack, clamp, scorer and ``f > 0`` it replaced, bit for
+    bit, with avgdl as a float and as a 0-dim tensor."""
+    bd, bf = 8, 4
+    a = k3_args(k3_inputs(61, bd, bf, bn), bn)
+    sc = to_port(K3_SCORERS[scorer])
+    want = _old_composition(a, 37.5, bd=bd, bf=bf, bn=bn, scorer=sc)
+    for avgdl in (37.5, torch.tensor(np.float32(37.5))):
+        got = dc.decode_score_rows(*a, avgdl, bd=bd, bf=bf, bn=bn, scorer=sc, want_dl=want_dl)
+        assert len(got) == (4 if want_dl else 3)
+        assert got[2].dtype == torch.bool
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert want[2].any() and not want[2].all()
+
+
 def test_wrappers_refuse_other_devices():
     """A wrapper runs its plain version only for CPU tensors."""
     t = torch.zeros((4, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         dg.dma_row_slices([t], torch.zeros((1, 1), dtype=torch.int32, device="meta"), 2)
+
+
+def test_decode_score_refuses_other_devices():
+    """The scored form, like the others, runs its plain version only for
+    CPU tensors."""
+    a = k3_args(k3_inputs(62, 8, 4, 8), 8, to=lambda t: t.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        dc.decode_score_rows(*a, 30.0, bd=8, bf=4, bn=8, scorer=to_port(BM25()))
+
+
+def test_checked_sets_know_tensors_by_identity():
+    """A wrapper's remembered pool set: found again by the same tensors
+    and static key only, forgotten when a tensor dies (even if another
+    takes its place), the entry unused for longest making room."""
+    from iresearch_tpu_torch.device import CheckedSets
+
+    sets = CheckedSets(size=2)
+    a, b = torch.zeros(3), torch.zeros(3)
+    assert sets.get((a, b), (8,)) is None
+    assert sets.put((a, b), (8,), "ab") == "ab"
+    assert sets.get((a, b), (8,)) == "ab"
+    assert sets.get((a, b), (4,)) is None and sets.get((b, a), (8,)) is None
+    assert sets.get((a, b.clone()), (8,)) is None
+    sets.put((a,), (), "a")
+    assert sets.get((a, b), (8,)) == "ab"  # now the newest
+    sets.put((b,), (), "b")  # pushes out (a,)
+    assert sets.get((a,), ()) is None and sets.get((a, b), (8,)) == "ab"
+    key = next(k for k in sets._sets if k[1] == (8,))
+    del b
+    c = torch.zeros(3)
+    sets._sets[(key[0][:1] + (id(c),), (8,))] = sets._sets.pop(key)  # c takes b's slot
+    assert sets.get((a, c), (8,)) is None
 
 
 @pytest.fixture
@@ -320,3 +433,128 @@ def test_rowmax_kernel_cases_match_plain_on_card(cuda_device, case, scorer, norm
         np.testing.assert_array_equal(got[1], want[1])
     if case.startswith("mix") or case == "s4_mm2":
         assert np.isfinite(want[0]).any() and not np.isfinite(want[0]).all()
+
+
+WIDTHS = tuple(BITS)  # 1, 2, 4, 8, 16, 32
+K3_RS = (1, 7, 8, 9, 3001)  # around the kernel's 8 rows per block, ragged
+
+
+def _dev(dev):
+    return lambda t: t.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf", WIDTHS)
+@pytest.mark.parametrize("bd", WIDTHS)
+def test_decode_kernel_cases_match_plain_on_card(cuda_device, bd, bf):
+    """K3 (a warp per row) vs its plain version for every width pair and
+    row count, repeated and sentinel rows among them, bit for bit."""
+    for R in K3_RS:
+        a = k3_args(k3_inputs(100 + R, bd, bf, 8, R=R), 8, to=_dev(cuda_device))[:5]
+        got = dc.decode_rows(*a, bd=bd, bf=bf)
+        want = dc.decode_rows_ref(*a, bd=bd, bf=bf)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), R
+
+
+@pytest.mark.cuda
+def test_decode_kernel_wraps_and_guards_on_card(cuda_device):
+    """The prefix sum wraps in int32 as the plain version's does; a row id
+    outside its pool decodes as zeros instead of reading foreign memory."""
+    rng = np.random.default_rng(5)
+    deltas = rng.integers(2**30, 2**32, size=(6, BLOCK), dtype=np.uint64).astype(np.uint32)
+    freqs = rng.integers(0, 2**32, size=(6, BLOCK), dtype=np.uint64).astype(np.uint32)
+    base = np.asarray([2**31 - 1, -2**31, 0, 7, -5, 2**31 - 2], np.int32)
+    to = _dev(cuda_device)
+    dw, fw, bs = to(_t(pack_blocks(deltas, 32))), to(_t(pack_blocks(freqs, 32))), to(_t(base))
+    rows = to(torch.arange(6, dtype=torch.int32))
+    got = dc.decode_rows(dw, fw, bs, rows, rows.flip(0), bd=32, bf=32)
+    want = dc.decode_rows_ref(dw, fw, bs, rows, rows.flip(0), bd=32, bf=32)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (want[0][:, 1:] < want[0][:, :-1]).any()  # it did wrap
+    out = to(torch.tensor([-1, 6, 2**31 - 1, 3], dtype=torch.int32))
+    ok = to(torch.tensor([3, 3, 3, 3], dtype=torch.int32))
+    d, f = dc.decode_rows(dw, fw, bs, out, ok, bd=32, bf=32)
+    assert not d[:3].any() and torch.equal(d[3], want[0][3]) and torch.equal(f[0], want[1][2])
+    d, f = dc.decode_rows(dw, fw, bs, ok, out, bd=32, bf=32)
+    assert not f[:3].any() and torch.equal(d[0], want[0][3])
+    w = to(torch.ones(4))
+    d, sc, m, dl = dc.decode_score_rows(dw, fw, bs, out, out, dw, out, None, w, 30.0,
+                                        bd=32, bf=32, bn=32, scorer=to_port(BM25()), want_dl=True)
+    assert not d[:3].any() and not sc[:3].any() and not m[:3].any() and (dl[:3] == 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scorer", sorted(K3_SCORERS))
+@pytest.mark.parametrize("bn", WIDTHS + (-1,))
+def test_decode_score_kernel_cases_match_plain_on_card(cuda_device, bn, scorer):
+    """K3's scored form vs its plain version for every norm width (and the
+    norms gather), score kind and row count, with and without dl, avgdl as
+    a float and as a device tensor: docs, match flags, dl and the scores of
+    BM25 and boost bit for bit, TFIDF to rtol 1e-6."""
+    sc = to_port(K3_SCORERS[scorer])
+    for i, R in enumerate(K3_RS):
+        bd, bf = WIDTHS[(i + max(bn, 0)) % 6], WIDTHS[(2 * i + 1) % 6]
+        a = k3_args(k3_inputs(200 + R, bd, bf, bn, R=R), bn, to=_dev(cuda_device))
+        avgdl = 37.5 if i % 2 else torch.tensor(np.float32(37.5), device=cuda_device)
+        kw = dict(bd=bd, bf=bf, bn=bn, scorer=sc, want_dl=bool(i % 2) or R == 3001)
+        got = dc.decode_score_rows(*a, avgdl, **kw)
+        want = dc.decode_score_rows_ref(*a, avgdl, **kw)
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for j, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            if j == 1 and scorer.startswith("tfidf"):
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
+            else:
+                assert torch.equal(g, w), (R, j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 64])
+@pytest.mark.parametrize("Q", [1, 5, 75])
+def test_row_slices_kernel_cases_match_plain_on_card(cuda_device, Q, R):
+    """K2 (flat grid of 4 KB pieces) vs its plain version for 1-4 pools of
+    1, 4 and 128 words a row in every order (so one-word pools start
+    windows off a 16-byte line), windows ending in the pool's last row,
+    and a window past the end written as zeros."""
+    rng = np.random.default_rng(Q * 100 + R)
+    rows = 300
+    widths = {w: _t(rng.integers(0, 2**32, size=(rows, w), dtype=np.uint64).astype(np.uint32)).to(cuda_device)
+              for w in (1, 4, 128)}
+    for combo in [(1,), (4,), (128,), (1, 128), (128, 1, 4), (1, 4, 128, 1), (4, 1, 1, 128)]:
+        pools = [widths[w] for w in combo]
+        st = rng.integers(0, rows - R + 1, size=(Q, len(combo))).astype(np.int32)
+        st[-1] = rows - R  # ends in the last row
+        starts = _t(st).to(cuda_device)
+        got = dg.dma_row_slices(pools, starts, R)
+        torch.cuda.synchronize()
+        for g, w in zip(got, dg.dma_row_slices_ref(pools, starts, R)):
+            assert g.shape == w.shape and g.is_contiguous() and torch.equal(g, w), combo
+        assert all(g.data_ptr() % 16 == 0 for g in got)
+        st[0] = rows - R + 1  # one row past the end: zeros there
+        got = dg.dma_row_slices(pools, _t(st).to(cuda_device), R)
+        for g, p in zip(got, pools):
+            assert not g[0, R - 1].any() and torch.equal(g[0, : R - 1], p[rows - R + 1 :])
+            assert Q == 1 or torch.equal(g[-1], p[rows - R :])
+
+
+@pytest.mark.cuda
+def test_wrappers_check_their_pools_once_on_card(cuda_device):
+    """A first call with a wrong dtype, width or device raises; a pool set
+    that passed is not checked again, and still decodes the same."""
+    a = k3_args(k3_inputs(63, 8, 4, 8), 8, to=_dev(cuda_device))
+    sc = to_port(BM25())
+    with pytest.raises(TypeError, match="dtype"):
+        dc.decode_rows(a[0].float(), *a[1:5], bd=8, bf=4)
+    with pytest.raises(ValueError, match="width"):
+        dc.decode_rows(*a[:5], bd=4, bf=4)
+    with pytest.raises(ValueError, match="expected"):
+        dc.decode_score_rows(a[0], a[1].cpu(), *a[2:], 30.0, bd=8, bf=4, bn=8, scorer=sc)
+    with pytest.raises(TypeError, match="dtype"):
+        dg.dma_row_slices([a[0].float()], a[3][:, None], 2)
+    first = dc.decode_score_rows(*a, 30.0, bd=8, bf=4, bn=8, scorer=sc)
+    again = dc.decode_score_rows(*a, 30.0, bd=8, bf=4, bn=8, scorer=sc)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    with pytest.raises(TypeError, match="dtype"):
+        dc.decode_score_rows(*a[:8], a[8].double(), 30.0, bd=8, bf=4, bn=8, scorer=sc)
