@@ -34,7 +34,7 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
 7. times synchronised batched passes (QPS, for the record);
 8. on the same segment, drives the single-query executor
    (``DeviceQuery(..., device=dev)``) over ``bench.py``'s breadth
-   categories but Phrase and PrefixHot, and one ``QueryBatch`` with a
+   categories but Phrase (phase 9) and PrefixHot, and one ``QueryBatch`` with a
    query per tier that decodes postings rows (fold, aux, wand, direct,
    sort, join, gridmix; planner knobs, where a tier needs them, set for
    that query's plan alone and printed). Each is run with the launch
@@ -45,14 +45,43 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    against its plain version on every fused-scan category (four spans,
    min_match 2 among them), and both forms of K3 on the rows that a fold
    group and a join group really gather, and timed as in phase 5;
-   synchronised ms per query are printed for every category and tier.
+   synchronised ms per query are printed for every category and tier;
+9. phrases on the device, on the same segment: the single query's default
+   (``device_phrase=True``, ``exec/phrase.py``) for ``bench.py``'s Phrase,
+   a three-term phrase with a gap, and the phrase under And and Or with a
+   term. Each plan must carry a ``device_aux`` row and its first run must
+   launch K3's plain form once per phrase part (the rows are then kept
+   with the plan); the result is held against the plain-torch run (docs
+   equal, scores rtol 1e-5), against ``device_phrase=False`` (the host
+   evaluation) and against ``HostQuery``; K3's plain form is held bit for
+   bit against its plain version on the parts' rows and timed as in phase
+   5 (``phrase_*`` keys); synchronised ms per query for both settings,
+   and the ms of one evaluation of the phrase leaf on the device and on
+   the host;
+10. the index-wide path: a three-segment index of unequal sizes (the 5M-doc
+   segment, a quarter of it with seed 43, and 1,000 docs with seed 44,
+   ``bench.py``'s segment law, built here or loaded), all resident. The 400-query mix through
+   ``QueryBatch(mix, segments).prepare_all(10).run()``: every segment's
+   groups and the merge on the device are enqueued with no synchronise
+   (PyTorch's sync debug mode raises on those it detects), then one fetch; K1, K2 and
+   K3's scored form must launch; every call that the pass makes of a
+   kernel's wrapper, in each segment (the smaller ones give the kernels
+   other shapes), is held bit for bit against the plain version; the
+   result is held against the plain-torch run, the host merge
+   (``QueryBatch.search``) and 25 queries of the numpy oracle over all
+   segments; device bytes per segment, QPS over one loop of passes as in
+   phase 7, the ms of the merge alone and synchronised ms for one query
+   are printed;
+11. ``invert_device`` on the second segment's token stream against
+   ``invert_numpy``, field by field, with the seconds of both.
 
 The port and this script import nothing of ``jax`` or of the JAX package
 ``iresearch_tpu``; the run fails if either was loaded.
 
 It prints one JSON line of per-kernel results (``launches`` counts the
-400-query pass of phase 6 and the tier batch of phase 8, each read with
-the counts reset just before), then, as its last line, ``{"ok": true,
+400-query pass of phase 6, the tier batch of phase 8, the first runs of
+phase 9's queries and the index pass of phase 10, each read with the
+counts reset just before), then, as its last line, ``{"ok": true,
 "device": {...}}``. Any failure raises: the exit code is not 0 and the
 last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
 N`` runs a smaller corpus while debugging; ``--profile FILE`` adds a
@@ -195,6 +224,18 @@ def record_calls(kernels, fn, args, kw):
 
     fn(kernels._replace(**{n: noting(n, getattr(kernels, n)) for n in kernels._fields}),
        *args, **kw)
+    return rec
+
+
+def recorded(calls):
+    """``record_calls`` over the groups ``calls`` of a prepared batch, on
+    the kernels: {field: every call the groups made, in order}."""
+    from iresearch_tpu_torch.exec.batch import KERNELS
+
+    rec = {name: [] for name in KERNELS._fields}
+    for _t, _q, fn, args, kw in calls:
+        for name, made in record_calls(KERNELS, fn, args, kw).items():
+            rec[name].extend(made)
     return rec
 
 
@@ -374,6 +415,51 @@ def show(name, r, smi):
           f"{r['target_ms']:.5f} ms on {smi}")
 
 
+def k1_equal(torch, a, kk):
+    """K1 on one call's arguments bit for bit against its plain version
+    (the argmax wherever a row has a hit); returns the max abs error."""
+    from iresearch_tpu_torch.ops import dense_scan as ds
+
+    got = ds.dense_scan_rowmax(*a, **kk)
+    want = ds.dense_scan_rowmax_ref(*a, **kk)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"K1 row max differs: err {max_abs_err(torch, got[0], want[0])}")
+    fin = torch.isfinite(want[0])
+    if not torch.equal(got[1][fin], want[1][fin]):
+        raise AssertionError("K1 argmax differs")
+    return max_abs_err(torch, got[0], want[0])
+
+
+def k2_equal(torch, pools, starts, R):
+    """K2 on one call's arguments bit for bit against its plain version."""
+    from iresearch_tpu_torch.ops import dma_gather as dg
+
+    got = dg.dma_row_slices(pools, starts, R)
+    want = dg.dma_row_slices_ref(pools, starts, R)
+    torch.cuda.synchronize()
+    if len(got) != len(want) or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("K2 differs from plain")
+
+
+def check_calls(torch, prep, what):
+    """Every call of a kernel's wrapper that the groups of a prepared batch
+    make, recorded and held bit for bit against the kernel's plain version
+    on the same inputs (no timing); returns the calls checked per kernel."""
+    rec = recorded(prep.calls)
+    for a, kk in rec["rowmax"]:
+        k1_equal(torch, a, kk)
+    for a, _kw in rec["row_slices"]:
+        k2_equal(torch, *a)
+    print(f"K1 and K2 vs plain ({what}): bit-exact on {len(rec['rowmax'])} scans "
+          f"{[(tuple(a[1].shape), a[3].shape[0]) for a, _kk in rec['rowmax']]} "
+          f"(starts, grid rows) and {len(rec['row_slices'])} row-slice calls "
+          f"{[(tuple(a[1].shape), a[2]) for a, _kw in rec['row_slices']]} (starts, R)")
+    check_k3(torch, *k3_lists(rec), what)
+    return Counter(dense_scan_rowmax=len(rec["rowmax"]), dma_row_slices=len(rec["row_slices"]),
+                   decode_rows=len(rec["decode"]), decode_score_rows=len(rec["decode_score"]))
+
+
 def check_k1(torch, prep, out, floor):
     """K1 vs plain on every scan group (BM25, bit for bit), timed between
     events around eager calls."""
@@ -388,15 +474,7 @@ def check_k1(torch, prep, out, floor):
         pools, norms, starts, ws, avgdl_f, _avgdl_t = args
         kk = dict(scorer=kw["scorer"], span_bits=kw["span_bits"],
                   conj=kw["conj"], mm=kw["mm"])
-        got = ds.dense_scan_rowmax(pools, starts, ws, norms, avgdl_f, **kk)
-        want = ds.dense_scan_rowmax_ref(pools, starts, ws, norms, avgdl_f, **kk)
-        torch.cuda.synchronize()
-        if not torch.equal(got[0], want[0]):
-            raise AssertionError(f"K1 row max differs: err {max_abs_err(torch, got[0], want[0])}")
-        fin = torch.isfinite(want[0])
-        if not torch.equal(got[1][fin], want[1][fin]):
-            raise AssertionError("K1 argmax differs")
-        err = max(err, max_abs_err(torch, got[0], want[0]))
+        err = max(err, k1_equal(torch, (pools, starts, ws, norms, avgdl_f), kk))
         runs.append((pools, starts, ws, norms, avgdl_f, kk))
     shapes = [(tuple(r[1].shape), r[5]["span_bits"]) for r in runs]
     print(f"K1 bm25 vs plain: bit-exact on {len(runs)} scan groups {shapes}")
@@ -454,23 +532,15 @@ def check_k1_scorers(torch, dev):
 def check_k2_k3(torch, prep, out, floor, smi):
     """K2 and both forms of K3 vs plain on the calls that every dslice
     group really makes (bit for bit), timed."""
-    from iresearch_tpu_torch.exec.batch import KERNELS
     from iresearch_tpu_torch.ops import dma_gather as dg
 
     calls = [c for c in prep.calls if c[0] == "dslice"]
     if not calls:
         raise AssertionError("the mix has no dslice group")
-    rec = {}
-    for _t, _q, fn, args, kw in calls:
-        for name, made in record_calls(KERNELS, fn, args, kw).items():
-            rec.setdefault(name, []).extend(made)
+    rec = recorded(calls)
     runs2 = [a for a, _kw in rec["row_slices"]]
-    for pools, starts, R in runs2:
-        got = dg.dma_row_slices(pools, starts, R)
-        want = dg.dma_row_slices_ref(pools, starts, R)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError("K2 differs from plain")
+    for r in runs2:
+        k2_equal(torch, *r)
     print(f"K2 vs plain: bit-exact on {len(runs2)} dslice groups "
           f"{[(tuple(r[1].shape), r[2], [tuple(p.shape) for p in r[0]]) for r in runs2]}")
     plain, scored = k3_lists(rec)
@@ -565,18 +635,18 @@ def check_oracle(vals, docs, tasks, sr, scorer, k):
     print(f"oracle (HostQuery, numpy): {n} queries {dict(seen)} pass the exactness gate")
 
 
-def profile_passes(torch, prep, path, kind, smi, passes=5):
-    """torch.profiler over ``passes`` synchronised batched passes: device
-    time by kernel name (table to ``path``) and the device's busy share
-    of the wall time."""
+def profile_passes(torch, run, path, kind, smi, calls=(), passes=5):
+    """torch.profiler over ``passes`` synchronised passes of ``run()``:
+    device time by kernel name (table to ``path``) and the device's busy
+    share of the wall time; then each group of ``calls`` between events."""
     from torch.profiler import ProfilerActivity, profile
 
-    prep.run_grouped()
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         for _ in range(passes):
-            prep.run_grouped()
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -603,8 +673,10 @@ def profile_passes(torch, prep, path, kind, smi, passes=5):
                   f"{by_name[name] / count[name] / 1e3:.5f} ms device per launch")
     from iresearch_tpu_torch.exec.batch import KERNELS
 
+    if not calls:
+        return
     per_tier = Counter()
-    for tier, qis, fn, a, kw in prep.calls:
+    for tier, qis, fn, a, kw in calls:
         t1 = time.perf_counter()
         ms = cuda_ms(torch, lambda: fn(KERNELS, *a, **kw), iters=10, warmup=2)
         wall_ms = (time.perf_counter() - t1) * 1e3 / 12
@@ -688,9 +760,8 @@ def sync_ms(torch, fn, reps=SINGLE_REPS):
 
 def run_breadth(torch, sr, scorer, k, dev, smi):
     """Phase 8a: the single-query executor over bench.py's breadth
-    categories. Phrase is left out because the single query's
-    ``device_phrase=True`` default runs it on the device, which is not
-    ported yet; PrefixHot because bench.py reports it apart."""
+    categories. Phrase has a phase of its own (9); PrefixHot is left out
+    because bench.py reports it apart."""
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.exec.executor import DeviceQuery
     from iresearch_tpu_torch.kernels import build as kb
@@ -776,13 +847,7 @@ def check_gather(torch, prep, kern, floor, smi):
     """Both forms of K3 in gather form, on the rows that the fold and join
     groups really decode: held against plain and timed (``gather_*`` keys
     beside the dslice form's)."""
-    from iresearch_tpu_torch.exec.batch import KERNELS
-
-    rec = {}
-    for tier, _q, fn, args, kw in prep.calls:
-        if tier in ("fold", "join"):
-            for name, made in record_calls(KERNELS, fn, args, kw).items():
-                rec.setdefault(name, []).extend(made)
+    rec = recorded([c for c in prep.calls if c[0] in ("fold", "join")])
     plain, scored = k3_lists(rec)
     scored_work = check_k3(torch, plain, scored, "gather form, fold and join groups")
     gathered = sum(int((a[3] != a[4]).sum()) for a, _kw in plain)
@@ -795,6 +860,233 @@ def check_gather(torch, prep, kern, floor, smi):
             r["rows"] = sum(a[3].shape[0] for a, _kw in calls)
             kern[name].update({f"gather_{key}": v for key, v in r.items()})
             show(f"{name}, gather form, {r['rows']} rows in {len(calls)} calls", r, smi)
+
+
+def run_phrases(torch, sr, scorer, k, dev, smi, kern, floor):
+    """Phase 9: phrases through the single query's default
+    (``device_phrase=True``); returns the launches of the first runs."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import phrase as ph
+    from iresearch_tpu_torch.exec.batch import KERNELS
+    from iresearch_tpu_torch.exec.executor import DeviceQuery
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.search import filters as F
+    from iresearch_tpu_torch.search.host_eval import HostQuery
+
+    term_at, _high, _med, low = bench_mix._ranked(sr)
+    phrase = bench_mix.breadth_tasks(sr)[0][1]
+    tasks = [
+        ("Phrase", phrase),
+        ("Phrase3Gap", F.ByPhrase("body", [term_at(10), term_at(11), (1, term_at(12))])),
+        ("AndPhraseTerm", F.And(phrase, F.ByTerm("body", term_at(40)))),
+        ("OrPhraseTerm", F.Or(phrase, F.ByTerm("body", low[4]))),
+    ]
+    total = Counter()
+    decodes = []  # K3 plain-form calls of the phrase parts, as they were made
+    for name, flt in tasks:
+        dq = DeviceQuery(flt, [sr], scorer, device=dev)
+        plan = dq.plan(0)
+        if not plan.device_aux:
+            raise AssertionError(f"phrase {name}: the plan has no device_aux row")
+        parts = sum(len(spec.parts) for _a, spec in plan.device_aux)
+        tier = dq.call(0, k)[0]
+        kb.reset_launch_counts()
+        got = dq.execute_segment_async(0, k)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in kb.launch_counts().items() if c}
+        if launches.get("decode_rows", 0) != parts:
+            raise AssertionError(
+                f"phrase {name}: launches {launches}, needs decode_rows x {parts}")
+        total.update(launches)
+        plain = dq.execute_segment_async(0, k, plain=True)
+        for g, w in zip(got, plain):
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+            if g.dtype.kind == "i":
+                np.testing.assert_array_equal(g, w, err_msg=f"phrase {name} vs plain")
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=0.0)
+        hits = check_result(torch, got, plain, flt, sr, scorer, k, f"phrase {name}")
+        dh = DeviceQuery(flt, [sr], scorer, device_phrase=False, device=dev)
+        if dh.plan(0).device_aux:
+            raise AssertionError("device_phrase=False left a device_aux row")
+        check_result(torch, got, dh.execute_segment_async(0, k), flt, sr, scorer, k,
+                     f"phrase {name} vs host evaluation")
+        ms = sync_ms(torch, lambda: dq.execute_segment_async(0, k))
+        ms_host = sync_ms(torch, lambda: dh.execute_segment_async(0, k))
+        # one evaluation of the leaf itself: on the device (decode, keys,
+        # sort, membership, count, score), and by the host oracle
+        spec = plan.device_aux[0][1]
+        rec = record_calls(
+            KERNELS, lambda kn: ph.run_phrase_dense(
+                spec, sr, scorer, plan.nd_pad, device=dev, kern=kn), (), {})
+        decodes += rec["decode"]
+        leaf_ms = sync_ms(torch, lambda: ph.run_phrase_dense(
+            spec, sr, scorer, plan.nd_pad, device=dev))
+        leaf = phrase if name != "Phrase3Gap" else flt
+        t1 = time.perf_counter()
+        pairs = HostQuery(leaf, [sr], scorer).eval_pairs(leaf, 0)
+        host_ms = (time.perf_counter() - t1) * 1e3
+        print(f"phrase {name:14s} tier {tier:5s} {hits:2d} hits, {parts} parts "
+              f"(rows {[len(p.rows_d) for p in spec.parts]}, pos rows "
+              f"{[len(p.rows_p) for p in spec.parts]}), first-run launches {launches}: "
+              f"{ms:.4f} ms/query on the device rows, {ms_host:.4f} ms/query on the "
+              f"host-evaluated rows (both kept with the plan; {SINGLE_REPS} runs); one "
+              f"evaluation of the leaf: {leaf_ms:.4f} ms on the device, {host_ms:.1f} ms "
+              f"on the host ({len(pairs.docs)} matching docs) on {smi}")
+    # K3's plain form on the parts' rows: against plain, and timed
+    check_k3(torch, decodes, [], "phrase parts")
+    r, _none = time_k3(torch, decodes, [], None, floor)
+    r["rows"] = sum(a[3].shape[0] for a, _kw in decodes)
+    kern["decode_rows"].update({f"phrase_{key}": v for key, v in r.items()})
+    show(f"decode_rows, phrase parts, {r['rows']} rows in {len(decodes)} calls", r, smi)
+    return total
+
+
+def oracle_topk_index(flt, srs, scorer, k):
+    """``HostQuery`` over every segment (index-wide stats), merged with
+    numpy in (score desc, global doc asc) order."""
+    from iresearch_tpu_torch.search.host_eval import HostQuery
+
+    hq = HostQuery(flt, srs, scorer)
+    docs, sc, base = [], [], 0
+    for s, sr in enumerate(srs):
+        r = hq.execute(s)
+        d = np.flatnonzero(r.match)
+        docs.append(d + base)
+        sc.append(r.score[d])
+        base += sr.num_docs
+    docs, sc = np.concatenate(docs), np.concatenate(sc)
+    o = np.lexsort((docs, -sc))[:k]
+    return docs[o], sc[o]
+
+
+def run_index(torch, srs, tasks, scorer, k, dev, smi, kind, profile):
+    """Phase 10: the 400-query mix over the multi-segment index through
+    ``prepare_all(k).run()``; returns the launches of the checked pass."""
+    from iresearch_tpu_torch.exec.batch import QueryBatch
+    from iresearch_tpu_torch.index.segment import device_state
+    from iresearch_tpu_torch.kernels import build as kb
+
+    filters = [f for _c, f in tasks]
+    qb = QueryBatch(filters, srs, scorer, wand=True, device=dev)
+    mb = qb.prepare_all(k)
+    torch.cuda.synchronize()
+    sizes = [sr.num_docs for sr in srs]
+    nbytes = [device_state(sr, dev).device_bytes for sr in srs]
+    print(f"index: {len(srs)} segments of {sizes} docs ({sum(sizes)} in all), device "
+          f"bytes {nbytes} ({sum(nbytes)} in all; allocated "
+          f"{torch.cuda.memory_allocated(dev)} bytes) on {smi}")
+    for s, p in enumerate(mb.preps):
+        tq = Counter()
+        for t, qis, *_r in p.calls:
+            tq[t] += len(qis)
+        print(f"  segment {s}: groups per tier {dict(Counter(c[0] for c in p.calls))}, "
+              f"queries per tier {dict(tq)}")
+    kb.reset_launch_counts()
+    # nothing in the pass may wait for the device: a synchronise raises here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vals_t, docs_t = mb.run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # one fetch (and with it the one synchronise) ends the pass
+    packed = torch.stack([vals_t.view(torch.int32), docs_t]).cpu().numpy()
+    launches = kb.launch_counts()
+    vals, docs = packed[0].view(np.float32), packed[1]
+    print(f"index pass: enqueued with no synchronise, one fetch of {packed.nbytes} bytes; "
+          f"launches {launches}")
+    for name in ("dense_scan_rowmax", "dma_row_slices", "decode_score_rows"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in the index pass")
+    if vals.shape != (len(tasks), k) or not np.isfinite(vals[:, 0]).all():
+        raise AssertionError(f"index pass: shape {vals.shape} or a query without a hit")
+    # every wrapper call of the pass, segment by segment, against plain: the
+    # smaller segments give the kernels shapes that segment 0 does not
+    checked = [check_calls(torch, p, f"index segment {s}") for s, p in enumerate(mb.preps)]
+    beyond = sum(checked[1:], Counter())
+    print(f"index pass, wrapper calls held against plain: {[dict(c) for c in checked]}")
+    for name in ("dense_scan_rowmax", "dma_row_slices", "decode_score_rows"):
+        if beyond[name] <= 0:
+            raise AssertionError(f"kernel {name} was not checked beyond segment 0")
+    for name, n in launches.items():
+        if n > sum(c[name] for c in checked):
+            raise AssertionError(f"kernel {name}: {n} launches in the pass, fewer calls checked")
+    pv, pd = (t.cpu().numpy() for t in mb.run(plain=True))
+    np.testing.assert_array_equal(docs, pd)
+    np.testing.assert_allclose(vals, pv, rtol=1e-5, atol=0.0)
+    print(f"index pass vs plain-torch run: {len(tasks)} queries match")
+    ref = qb.search(k)
+    for qi, r in enumerate(ref):
+        fin = np.isfinite(vals[qi])
+        np.testing.assert_array_equal(docs[qi][fin], [d for d, _v in r], err_msg=f"q{qi}")
+        np.testing.assert_allclose(vals[qi][fin], [v for _d, v in r], rtol=1e-5, atol=0.0)
+    print(f"index pass vs the host merge (QueryBatch.search): {len(ref)} queries match, "
+          f"ties in (score desc, global doc asc) order")
+    seen = Counter()
+    for qi, (cat, flt) in enumerate(tasks):
+        if seen[cat] < PER_CATEGORY_ORACLE:
+            seen[cat] += 1
+            wd, wv = oracle_topk_index(flt, srs, scorer, k)
+            assert_gate(vals[qi], docs[qi], wd, wv, f"index oracle q{qi} {cat}")
+    other = sum(int((docs[qi][np.isfinite(vals[qi])] >= sizes[0]).sum())
+                for qi in range(len(tasks)))
+    print(f"index oracle (HostQuery over all segments): {sum(seen.values())} queries "
+          f"{dict(seen)} pass the exactness gate; {other} of the "
+          f"{int(np.isfinite(vals).sum())} results lie outside segment 0")
+
+    def ms_per_pass(fn):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PASSES):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / PASSES
+
+    ms = ms_per_pass(mb.run)
+    per_seg = [ms_per_pass(p.run_grouped) for p in mb.preps]
+    outs = [g for p in mb.preps for g, _q in p.run_grouped()]
+    merge = lambda: mb.merge(outs)  # noqa: E731
+    print(f"index passes: {PASSES} x {len(tasks)} queries in {ms * PASSES / 1e3:.4f} s -> "
+          f"{len(tasks) / ms * 1e3:.1f} QPS ({ms:.4f} ms/pass); each segment's groups alone "
+          f"{[round(x, 4) for x in per_seg]} ms/pass; the merge alone "
+          f"{cuda_ms(torch, merge):.4f} ms between events, "
+          f"{enqueue_ms(torch, merge):.4f} ms to enqueue, on {kind} ({smi})")
+    high0 = tasks[0][1]
+    one = QueryBatch([high0], srs, scorer, device=dev).prepare_all(k)
+    print(f"index single query (prepare_all, {len(srs)} segments + merge): "
+          f"{sync_ms(torch, one.run):.4f} ms/query synchronised ({SINGLE_REPS} runs) on {smi}")
+    if profile:
+        profile_passes(torch, mb.run, profile + ".index", kind, smi)
+    return launches
+
+
+def run_invert(torch, num_docs, seed, dev, smi):
+    """Phase 11: ``invert_device`` on the card against ``invert_numpy``."""
+    import dataclasses
+
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.index.invert import invert_device, invert_numpy
+
+    tids, doc, pos = bench_mix.token_stream(num_docs, seed)
+    t1 = time.perf_counter()
+    want = invert_numpy(tids, doc, pos, bench_mix.VOCAB, num_docs)
+    host_s = time.perf_counter() - t1
+    invert_device(tids[:1000], doc[:1000], pos[:1000], bench_mix.VOCAB, num_docs, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = invert_device(tids, doc, pos, bench_mix.VOCAB, num_docs, device=dev)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t1
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"invert_device {f.name}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        np.testing.assert_array_equal(a, b, err_msg=f"invert_device {f.name}")
+    print(f"invert: {len(tids)} tokens of {num_docs} docs (seed {seed}), {len(want.e_doc)} "
+          f"entries: invert_device equals invert_numpy field by field; "
+          f"{dev_s:.3f} s on the device (upload and fetch included), {host_s:.3f} s "
+          f"invert_numpy on the host, on {smi}")
 
 
 def main() -> int:
@@ -817,8 +1109,8 @@ def main() -> int:
     from iresearch_tpu_torch.device import require_cuda
     from iresearch_tpu_torch.exec.batch import QueryBatch
     from iresearch_tpu_torch.index.segment import SegmentReader, device_state
-    from iresearch_tpu_torch.search.scorers import BM25
     from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.search.scorers import BM25
 
     t0 = time.perf_counter()
     dev = require_cuda()
@@ -837,8 +1129,9 @@ def main() -> int:
     print(kb.library_path().with_suffix(".log").read_text()[-3000:])
     phase("2 build", t0)
 
+    cache_dir = os.path.join(REPO, ".bench_cache")
     t0 = time.perf_counter()
-    data, cached = bench_mix.load_or_build(args.docs, os.path.join(REPO, ".bench_cache"))
+    data, cached = bench_mix.load_or_build(args.docs, cache_dir)
     sr = SegmentReader("smoke", data)
     sr.dense_cache("body")
     print(f"segment: {sr.num_docs} docs, {'loaded' if cached else 'built'}")
@@ -923,8 +1216,31 @@ def main() -> int:
     print(f"launches over the {len(tier_tasks)} tier calls: {dict(tier_launches)}")
     check_gather(torch, tier_prep, kern, floor, smi)
     phase("8 breadth and tiers", t0)
+
+    t0 = time.perf_counter()
+    phrase_launches = run_phrases(torch, sr, scorer, k, dev, smi, kern, floor)
+    print(f"launches over the phrase queries' first runs: {dict(phrase_launches)}")
+    phase("9 phrase", t0)
+
+    t0 = time.perf_counter()
+    # bench.py's segment law (segment si has seed 42 + si), sizes as tiered
+    # consolidation leaves them
+    seg_sizes = [args.docs, max(2_000, args.docs // 4), 1_000]
+    srs = [sr]
+    for si, n in enumerate(seg_sizes[1:], start=1):
+        d, was_cached = bench_mix.load_or_build(n, cache_dir, si)
+        srs.append(SegmentReader(f"smoke{si}", d))
+        srs[-1].dense_cache("body")
+        print(f"segment {si}: {n} docs, {'loaded' if was_cached else 'built'}")
+    print(f"index segments ready in {time.perf_counter() - t0:.3f} s")
+    index_launches = run_index(torch, srs, tasks, scorer, k, dev, smi, kind, args.profile)
+    phase("10 index", t0)
+
+    t0 = time.perf_counter()
+    run_invert(torch, seg_sizes[1], bench_mix.SEED + 1, dev, smi)
+    phase("11 invert", t0)
     if args.profile:
-        profile_passes(torch, prep, args.profile, kind, smi)
+        profile_passes(torch, prep.run_grouped, args.profile, kind, smi, prep.calls)
         profile_tiers(torch, tier_prep, smi)
 
     # the port and this script import nothing of JAX or of the JAX
@@ -935,14 +1251,15 @@ def main() -> int:
         raise AssertionError(f"JAX modules imported: {jax_mods[:5]}")
     print("imports: no module of jax or iresearch_tpu loaded")
 
+    counts = dict(launches_pass=launches, launches_tiers=tier_launches,
+                  launches_phrase=phrase_launches, launches_index=index_launches)
     for name in kb.KERNELS:
-        if launches[name] + tier_launches[name] <= 0:
+        if sum(c[name] for c in counts.values()) <= 0:
             raise AssertionError(f"kernel {name} never launched on a main path")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=launches[name] + tier_launches[name],
-             launches_pass=launches[name], launches_tiers=tier_launches[name],
-             **kern[name])
+             launches=sum(c[name] for c in counts.values()),
+             **{key: c[name] for key, c in counts.items()}, **kern[name])
         for name in kb.KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,12 @@
 
 ``bench.py`` re-executes the interpreter at import (malloc tuning) and
 imports jax, so the port's smoke run and tests cannot import it. This
-module carries the same corpus law, seed, vocabulary, segment cache file
-and task ranks (``bench.py:57-86,123-172,203-226``):
+module carries the same corpus law, seeds, vocabulary, segment cache files
+and task ranks (``bench.py:57-86,118-172,203-226,305-345``):
 
 * Zipf(1.25) token ids over a 30k-term vocabulary, doc lengths uniform in
-  [32, 96), seed 42 (the reference's canonical 5M-doc index run);
+  [32, 96), seed 42 (the reference's canonical 5M-doc index run); an
+  index of several segments gives segment ``si`` the seed ``42 + si``;
 * 80 queries each of HighTerm (df ranks 2-81), MedTerm (200-279), LowTerm
   (2000-2079), AndHighMed and OrHighMed (pairs of High and Med terms).
 """
@@ -45,6 +46,18 @@ def build_corpus(num_docs: int, seed: int = SEED):
     return lens, tids
 
 
+def token_stream(num_docs: int, seed: int = SEED):
+    """(term ids, doc of token, position of token) of the corpus, in
+    (doc asc, pos asc) arrival order: what an inverter takes."""
+    lens, tids = build_corpus(num_docs, seed)
+    doc_of_tok = np.repeat(np.arange(num_docs), lens)
+    starts = np.cumsum(lens) - lens
+    pos_of_tok = (
+        np.arange(len(tids), dtype=np.int64) - np.repeat(starts, lens)
+    ).astype(np.uint32)
+    return tids, doc_of_tok, pos_of_tok
+
+
 def build_segment_data(num_docs: int, seed: int = SEED):
     """One "body" field segment over the corpus (``bench.py:138-163``)."""
     from iresearch_tpu_torch.formats.postings import encode_field_postings
@@ -52,12 +65,7 @@ def build_segment_data(num_docs: int, seed: int = SEED):
     from iresearch_tpu_torch.index.invert import invert_numpy
     from iresearch_tpu_torch.index.segment import SegmentData
 
-    lens, tids = build_corpus(num_docs, seed)
-    doc_of_tok = np.repeat(np.arange(num_docs), lens)
-    starts = np.cumsum(lens) - lens
-    pos_of_tok = (
-        np.arange(len(tids), dtype=np.int64) - np.repeat(starts, lens)
-    ).astype(np.uint32)
+    tids, doc_of_tok, pos_of_tok = token_stream(num_docs, seed)
     inv = invert_numpy(tids, doc_of_tok, pos_of_tok, VOCAB, num_docs)
     present = np.flatnonzero(np.diff(inv.term_ptr) > 0)
     terms_l = [b"t%06d" % t for t in present]
@@ -72,18 +80,23 @@ def build_segment_data(num_docs: int, seed: int = SEED):
     return SegmentData(num_docs, {"body": fpn}, {})
 
 
-def load_or_build(num_docs: int, cache_dir: Optional[str]):
-    """(SegmentData, loaded_from_cache): the segment from ``cache_dir``
-    under ``bench.py``'s file name, else built (and written there)."""
+def load_or_build(num_docs: int, cache_dir: Optional[str], seg_index: int = 0):
+    """(SegmentData, loaded_from_cache): segment ``seg_index`` of an index
+    (seed ``42 + seg_index``) from ``cache_dir`` under ``bench.py``'s file
+    name (``bench.py:118-130``: segment 0 keeps the single-segment name,
+    segment ``si`` gets the suffix ``_s{42 + si}``), else built (and
+    written there)."""
     from iresearch_tpu_torch.formats.segment_io import read_segment, write_segment
 
+    seed = SEED + seg_index
     path = None
     if cache_dir is not None:
-        path = os.path.join(cache_dir, f"seg_{num_docs}_{VOCAB}_v5.bin")
+        suffix = "" if seg_index == 0 else f"_s{seed}"
+        path = os.path.join(cache_dir, f"seg_{num_docs}_{VOCAB}_v5{suffix}.bin")
         if os.path.exists(path):
             with open(path, "rb") as f:
                 return read_segment(f.read()), True
-    data = build_segment_data(num_docs)
+    data = build_segment_data(num_docs, seed)
     if path is not None:
         os.makedirs(cache_dir, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -134,7 +147,8 @@ def breadth_tasks(sr) -> List[Tuple[str, object, bool]]:
     as (name, filter, wand) (``bench.py:305-345``): Prefix is a 3-char
     prefix over a rare band, Fuzzy1 an edit distance of 1, both with the
     reference's ``scored_terms_limit=16``; only OrHigh4+WAND runs with
-    ``wand=True``; PrefixHot joins from 1M docs up."""
+    ``wand=True``; PrefixHot joins from 1M docs up. ``Phrase`` runs on the
+    device under the single query's default (``exec/phrase.py``)."""
     from iresearch_tpu_torch.search import filters as F
 
     term_at, high, med, low = _ranked(sr)

@@ -17,10 +17,11 @@ points run the same bodies:
 * fold, or aux when the plan has host-aux leaves — ``segment_body``, the
   sparse aux uploads densified on the device first.
 
-Plans with on-device phrases (``device_aux``) raise ``NotImplementedError``,
-as does ``prepare_all`` (the merge across segments on the device).
-Every call's inputs are uploaded once at ``prepare``; ``run`` only
-launches work. A batched runner splits the query axis into chunks by a
+A plan's on-device phrase rows (``device_aux``, ``exec/phrase.py``) are
+computed on the first run and kept with the call's other inputs;
+``prepare_all`` merges the segments' results on the device
+(``exec/segmerge.py``). Every call's inputs are uploaded once at
+``prepare``; ``run`` only launches work. A batched runner splits the query axis into chunks by a
 lane budget (``_chunked``, the counterpart of ``_chunked_vmap``).
 """
 
@@ -127,15 +128,24 @@ def _run_scan(
 
 def _run_fold(
     kern, pools, rowsets, avgdl, leaf_min, aux_sp, alive, dense_shared,
-    dense_dyn, *, tree, gbits, scorer, num_leaves, k, nd, dense_static,
+    dense_dyn, phrase=None,
+    *, tree, gbits, scorer, num_leaves, k, nd, dense_static, aux_rows=(),
 ):
-    """The fold tier (``exec/batch.py:_run_batch``, fold branch)."""
+    """The fold tier (``exec/batch.py:_run_batch``, fold branch).
+
+    ``aux_sp`` holds the host-evaluated aux leaves' sparse uploads,
+    ``phrase(kern)`` the on-device phrase leaves' dense rows; ``aux_rows``
+    says, per aux leaf, which of the two it is and its place there."""
 
     def one(xs):
-        rs, lm, ax, dd = xs
+        rs, lm, ax, dd, pr = xs
         am = asc = None
-        if ax is not None:
+        if ax:
             am, asc = densify_aux(ax, nd)
+        if pr:
+            # every aux leaf's row from where it was made, in leaf order
+            rows = [pr[j] if dev else (am[:, j], asc[:, j]) for dev, j in aux_rows]
+            am, asc = (torch.stack(x, 1) for x in zip(*rows))
         match, score = segment_body(
             pools, rs, avgdl, lm, am, asc, alive,
             tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves,
@@ -144,8 +154,11 @@ def _run_fold(
         )
         return topk_docs(torch.where(match, score, _NEG_INF), None, k)
 
-    width = nd * (max(1, num_leaves) + len(aux_sp or ()))
-    return _chunked(one, (rowsets, leaf_min, aux_sp, dense_dyn), leaf_min.shape[0], width)
+    width = nd * (max(1, num_leaves) + len(aux_rows))
+    pr = None if phrase is None else phrase(kern)
+    return _chunked(
+        one, (rowsets, leaf_min, aux_sp, dense_dyn, pr), leaf_min.shape[0], width
+    )
 
 
 def _run_wand(
@@ -219,6 +232,42 @@ def _dense_ub(p, di: int, device):
     return t
 
 
+def _phrase_rows(sr, reps, scorer: Scorer, device):
+    """``rows(kern)`` -> per on-device phrase leaf of the plans ``reps``
+    (match bool [Q, nd], score f32 [Q, nd]), computed by
+    ``run_phrase_dense`` on the first call with that kernel set and kept
+    (the counterpart of the rows ``_build_device_inputs`` fills once per
+    plan)."""
+    from iresearch_tpu_torch.exec.phrase import DevicePhraseSpec, run_phrase_dense
+
+    for p in reps:
+        for _a, spec in p.device_aux:
+            if not isinstance(spec, DevicePhraseSpec):
+                raise TypeError(
+                    f"{type(spec).__name__}: only DevicePhraseSpec rows run "
+                    "here (plans compiled with device_phrase=True)"
+                )
+    memo = {}
+
+    def rows(kern):
+        out = memo.get(kern)
+        if out is None:
+            out = []
+            for j in range(len(reps[0].device_aux)):
+                per = [
+                    run_phrase_dense(
+                        p.device_aux[j][1], sr, scorer, p.nd_pad,
+                        device=device, kern=kern,
+                    )
+                    for p in reps
+                ]
+                out.append(tuple(torch.stack(x) for x in zip(*per)))
+            out = memo[kern] = tuple(out)
+        return out
+
+    return rows
+
+
 def _stack_rows(arrays, R: int, dtype, fill) -> np.ndarray:
     out = np.full((len(arrays), R), fill, dtype)
     for j, a in enumerate(arrays):
@@ -235,11 +284,6 @@ def group_call(
     ``runner(KERNELS or PLAIN, *args, **kwargs)`` -> (vals [Q, k'],
     docs [Q, k']). The tier dispatch of ``QueryBatch.prepare`` and, with
     ``single=True`` and one plan, of ``DeviceQuery.execute_segment_async``."""
-    if any(p.device_aux for p in reps):
-        raise NotImplementedError(
-            "plans with on-device phrases (device_aux, exec/phrase.py) are "
-            "not ported (ROADMAP queue 1 item 11)"
-        )
     st = device_state(sr, device)
     p0 = reps[0]
     Q = len(reps)
@@ -389,25 +433,31 @@ def group_call(
         )
         kwargs = dict(common, k=min(k, nd), sample=wand_sample, wand_mode=wand_mode)
         return ("wand", _run_wand, args, kwargs)
-    aux_sp = None
     A = 0 if p0.aux_pairs is None else len(p0.aux_pairs)
-    if A:
-        # sparse aux upload: per aux a pow2 bucket of match docs (IMAX
-        # pad) + scores, densified on the device by the runner
-        aux_sp = []
-        for a in range(A):
-            pairs = [p.aux_pairs[a] for p in reps]
-            Mp = _pow2(max(8, max(len(d) for d, _v in pairs)))
-            aux_sp.append((
-                up(_stack_rows([d for d, _v in pairs], Mp, np.int32, _IMAX32), np.int32),
-                up(_stack_rows([v for _d, v in pairs], Mp, np.float32, 0.0), np.float32),
-            ))
-        aux_sp = tuple(aux_sp)
+    dev_idx = [a for a, _spec in p0.device_aux]
+    # sparse aux upload: per host-evaluated aux a pow2 bucket of match docs
+    # (IMAX pad) + scores, densified on the device by the runner; the
+    # on-device phrase leaves' rows are skipped here and filled by
+    # ``_phrase_rows``
+    aux_sp, aux_rows = [], []
+    for a in range(A):
+        if a in dev_idx:
+            aux_rows.append((True, dev_idx.index(a)))
+            continue
+        aux_rows.append((False, len(aux_sp)))
+        pairs = [p.aux_pairs[a] for p in reps]
+        Mp = _pow2(max(8, max(len(d) for d, _v in pairs)))
+        aux_sp.append((
+            up(_stack_rows([d for d, _v in pairs], Mp, np.int32, _IMAX32), np.int32),
+            up(_stack_rows([v for _d, v in pairs], Mp, np.float32, 0.0), np.float32),
+        ))
     args = (
-        tuple(pools), tuple(rowsets), avgdl, leaf_min, aux_sp, st.alive,
+        tuple(pools), tuple(rowsets), avgdl, leaf_min, tuple(aux_sp), st.alive,
         tuple(dense_shared), tuple(dense_dyn),
+        _phrase_rows(sr, reps, scorer, device) if dev_idx else None,
     )
-    return ("aux" if A else "fold", _run_fold, args, dict(common, k=min(k, nd)))
+    kwargs = dict(common, k=min(k, nd), aux_rows=tuple(aux_rows))
+    return ("aux" if A else "fold", _run_fold, args, kwargs)
 
 
 def _dslice_call(st, sr, gkeys, Rs, reps, k, scorer, up):
@@ -566,11 +616,16 @@ class QueryBatch:
         return PreparedBatch(len(plans), calls)
 
     def prepare_all(self, k: int):
-        """The merged batch over every segment (``exec/segmerge.py``)."""
-        raise NotImplementedError(
-            "merging across segments on the device (prepare_all, "
-            "exec/segmerge.py) is not ported (ROADMAP queue 1 item 12); "
-            "search() merges per-segment results on the host"
+        """The prepared global batch over every segment: ``run()`` enqueues
+        each segment's groups plus one merge on the device and returns
+        global (vals [Q, k], docs [Q, k]) (``exec/segmerge.py``). One
+        ``prepare`` per segment: the JAX package's joint cross-segment
+        grouping and padding only serve to share compiled programs."""
+        from iresearch_tpu_torch.exec.segmerge import MergedBatch
+
+        return MergedBatch(
+            [self.prepare(si, k) for si in range(len(self.segments))],
+            [sr.num_docs for sr in self.segments], k, device=self.device,
         )
 
     def execute_segment(

@@ -78,7 +78,9 @@ def dslice_core(
     docs, sc, m = kern.decode_score(
         dwords.reshape(n, -1), fwords.reshape(n, -1), base_r.reshape(n),
         rows, rows, None if nwords is None else nwords.reshape(n, -1), rows,
-        norms, w[:, None].expand(Q, R).reshape(n), avgdl,
+        # contiguous before the reshape: for Q == 1 the expanded view would
+        # reshape to a stride-0 view, which the kernel's wrapper refuses
+        norms, w[:, None].expand(Q, R).contiguous().reshape(n), avgdl,
         bd=bd, bf=bf, bn=bn, scorer=scorer,
     )
     docs = docs.reshape(Q, R, BLOCK)

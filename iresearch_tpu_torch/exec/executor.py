@@ -401,21 +401,6 @@ def wand_body(
     return topk_docs(torch.where(match, score, _NEG_INF), None, k)
 
 
-_PHRASE_LEAVES = (F.ByPhrase, F.BySamePosition)
-
-
-def _has_phrase(flt) -> bool:
-    """True when the plan walk reaches a phrase leaf (``plan.py:_walk``:
-    through And, Or and Not only; every other node is one aux leaf)."""
-    if isinstance(flt, _PHRASE_LEAVES):
-        return True
-    if isinstance(flt, (F.And, F.Or)):
-        return any(_has_phrase(c) for c in flt.filters)
-    if isinstance(flt, F.Not):
-        return _has_phrase(flt.filter)
-    return False
-
-
 def entry_device(device) -> torch.device:
     """``device`` as a ``torch.device``; the card when it is None (raises
     without one)."""
@@ -440,10 +425,10 @@ class DeviceQuery:
     """A prepared query executing on ``device`` (the card when None),
     exact vs the host oracle (``exec/executor.py:DeviceQuery``).
 
-    ``device_phrase=True`` (the JAX default) evaluates phrases on the
-    device, which is not ported yet: a query with a phrase leaf then
-    raises ``NotImplementedError``. ``device_phrase=False`` evaluates
-    them on the host as aux leaves, as ``QueryBatch`` does."""
+    ``device_phrase=True`` (the default, as in the JAX package) evaluates
+    a phrase of plain terms on the device (``exec/phrase.py``) where
+    ``compile_phrase`` allows it; ``device_phrase=False`` evaluates every
+    phrase on the host as an aux leaf, as ``QueryBatch`` does."""
 
     def __init__(
         self,
@@ -479,12 +464,6 @@ class DeviceQuery:
     def plan(self, seg_idx: int):
         p = self._plans.get(seg_idx)
         if p is None:
-            if self.device_phrase and _has_phrase(self.flt):
-                raise NotImplementedError(
-                    "on-device phrase (exec/phrase.py) is not ported "
-                    "(ROADMAP queue 1 item 11); device_phrase=False "
-                    "evaluates phrases on the host"
-                )
             p = _plancache.get_plan(
                 self.compiler,
                 self.flt,

@@ -20,9 +20,7 @@ Row counts are padded to powers of two with sentinel row 0 (zero block:
 freq 0 => zero score, zero matches), so jit signatures come from a small
 set and the executor needs no masks.
 
-A copy of ``iresearch_tpu/exec/plan.py``. Its two on-device phrase
-branches (``device_phrase=True`` or ``"keys"``) raise
-``NotImplementedError`` here until ``exec/phrase.py`` is ported.
+A copy of ``iresearch_tpu/exec/plan.py``.
 """
 
 from __future__ import annotations
@@ -228,6 +226,9 @@ class DenseSpan:
     avgdl: float = 1.0
     ub: Optional[np.ndarray] = None  # f32 [ndrows] WAND row upper bounds
     other: float = 0.0  # sum of other spans' max ub (WAND)
+
+
+_EMPTY_AUX = (np.zeros(0, np.int32), np.zeros(0, np.float32))
 
 
 @dataclass
@@ -845,16 +846,31 @@ class PlanCompiler:
 
     def _make_aux(self, flt, boost: float) -> int:
         dp = getattr(self, "_device_phrase", True)
-        if isinstance(flt, (F.ByPhrase, F.BySamePosition)) and (
-            dp is True or dp == "keys"
-        ):
-            # the JAX package compiles these through exec/phrase.py
-            # (on-device phrase execution), which the port lacks so far
-            raise NotImplementedError(
-                "on-device phrase (exec/phrase.py) is not ported "
-                "(ROADMAP queue 1 item 11); device_phrase=False "
-                "evaluates phrases on the host"
+        if dp == "keys" and isinstance(flt, (F.ByPhrase, F.BySamePosition)):
+            # sharded path: host builds per-part sorted position keys;
+            # intersection/tf/scoring run on the device
+            # (exec/phrase.py:PhraseKeysSpec)
+            from iresearch_tpu_torch.exec.phrase import compile_phrase_keys
+
+            spec = compile_phrase_keys(
+                flt, self._sr, self._seg, boost, self.prepared, self.scorer
             )
+            if spec is not None:
+                idx = len(self._aux)
+                self._aux.append(_EMPTY_AUX)  # row filled on device
+                self._dev_aux.append((idx, spec))
+                return idx
+        elif isinstance(flt, (F.ByPhrase, F.BySamePosition)) and dp is True:
+            from iresearch_tpu_torch.exec.phrase import compile_phrase
+
+            spec = compile_phrase(
+                flt, self._sr, self._seg, boost, self.prepared, self.scorer
+            )
+            if spec is not None:
+                idx = len(self._aux)
+                self._aux.append(_EMPTY_AUX)  # row filled on device
+                self._dev_aux.append((idx, spec))
+                return idx
         # sparse host evaluation: O(matches) host churn, no [nd] arrays
         # (host_eval.eval_pairs; reference: iterators yield matches only)
         p = self.prepared.eval_pairs(flt, self._seg, boost)

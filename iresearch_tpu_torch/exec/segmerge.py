@@ -1,0 +1,172 @@
+"""Device-side global top-k merge across segments (``exec/segmerge.py``).
+
+A multi-segment index (the shape any real index has after tiered
+consolidation — reference: ConsolidateTier, core/utils/index_utils.hpp:32-84,
+and the per-segment execute loop in utils/index-search.cpp:714-780) answers
+a query by executing per segment and merging the per-segment top-k. The
+reference merges in the caller's min-heap on the CPU; here the merge is
+enqueued on the device behind the segments' groups, so nothing crosses to
+the host until the caller fetches the final [Q, k]:
+
+* each segment's :class:`PreparedBatch` yields per signature group a
+  ``[Qg, k']`` (vals, docs) pair — groups differ per segment (row buckets
+  depend on that segment's dfs), so the outputs concatenate and permute
+  back to query order with a per-segment inverse permutation (static per
+  prepared batch);
+* the ``S * k`` global candidates of each query merge by (score desc,
+  global doc asc): one int64 key per (score, doc) and one ``torch.topk``
+  (``ops/topk.py:topk_docs``), where the JAX package sorts on two keys
+  with ``lax.sort``. Ties across segments so come out in the engine-wide
+  (score, doc) order.
+
+Global doc ids are ``segment_base + local_doc`` with bases the prefix sum
+of segment doc counts (must stay < 2^31: docs are int32 in both packages).
+
+Without a counterpart here: the JAX package's ``run(fused=...)`` switch,
+its ``_FUSED_CACHE`` / ``clear_fused_cache`` and the cross-segment padding
+of ``prepare_all`` (``_joint_pad``) exist only so that the segments of one
+pass trace into, and share, one compiled XLA program. Eager PyTorch has no
+program to share, and the results do not depend on them.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from iresearch_tpu_torch.ops.topk import topk_docs
+
+_NEG_INF = float("-inf")
+
+
+def _merge_flat(gvs, gds, gather, row_base, *, q: int, k: int):
+    """The merge on flat lists of per-group ``[Qg, k']`` tensors, every
+    segment's groups in order. ``gather`` int64 [q * S] names, query by
+    query and segment by segment, the row of their concatenation;
+    ``row_base`` int32 [S * q] is each concatenated row's segment base."""
+
+    def padk(a, fill):
+        if a.shape[1] == k:
+            return a
+        return torch.nn.functional.pad(a, (0, k - a.shape[1]), value=fill)
+
+    v = torch.cat([padk(g, _NEG_INF) for g in gvs])
+    d = torch.cat([padk(g, 0) for g in gds]) + row_base[:, None]
+    return topk_docs(v[gather].reshape(q, -1), d[gather].reshape(q, -1), k)
+
+
+def _flat_index(perms: np.ndarray, bases: np.ndarray):
+    """(gather int64 [Q * S], row_base int32 [S * Q]) of ``_merge_flat``
+    from the per-segment permutations [S, Q] and doc bases [S]."""
+    s, q = perms.shape
+    gather = (perms.astype(np.int64) + q * np.arange(s, dtype=np.int64)[:, None]).T
+    return np.ascontiguousarray(gather).reshape(-1), np.repeat(bases.astype(np.int32), q)
+
+
+def merge_body(gvs, gds, perms, bases, *, k: int):
+    """Assemble and merge (``exec/segmerge.py:_merge_body``).
+
+    gvs/gds: tuple over segments of tuples of per-group [Qg, k'] tensors
+    (vals f32 / local docs i32); perms [S, Q] maps query order to
+    concat-of-groups order; bases [S] i32 per-segment doc offsets.
+    Prepare clamps each group's k' to min(k, nd, lanes), so a tiny
+    segment (a normal pre-consolidation shape) yields k' < k — every
+    group pads to the requested global ``k`` with (-inf, 0) sentinels
+    (padded entries rank last and are non-finite, the same not-a-match
+    convention the per-segment top-k uses).
+    Returns global (vals [Q, k] f32, docs [Q, k] i32)."""
+    dev = gvs[0][0].device
+    gather, row_base = _flat_index(
+        np.asarray(perms.cpu() if isinstance(perms, torch.Tensor) else perms),
+        np.asarray(bases.cpu() if isinstance(bases, torch.Tensor) else bases),
+    )
+    return _merge_flat(
+        [g for v in gvs for g in v], [g for d in gds for g in d],
+        torch.from_numpy(gather).to(dev), torch.from_numpy(row_base).to(dev),
+        q=perms.shape[1], k=k,
+    )
+
+
+def perm_of(prep) -> np.ndarray:
+    """Inverse permutation of a PreparedBatch's group order ([Q] i32)."""
+    qorder = np.concatenate([np.asarray(c[1], np.int64) for c in prep.calls])
+    return np.argsort(qorder).astype(np.int32)
+
+
+class MergedBatch:
+    """Prepared multi-segment batch: run() -> global (vals, docs) [Q, k].
+
+    Built from one :class:`PreparedBatch` per segment (same queries, same
+    k). ``run()`` enqueues every segment's groups and then the merge; the
+    result stays on the device until fetched. ``device`` is where the
+    prepared batches live (the card when None)."""
+
+    def __init__(
+        self, preps: Sequence, num_docs: Sequence[int], k: int = None,
+        *, device=None,
+    ) -> None:
+        if len(preps) != len(num_docs):
+            raise ValueError("one PreparedBatch per segment required")
+        # global k: the cross-segment merge width; None resolves at run()
+        # to the max per-group width over all segments (every group's k'
+        # is the requested k clamped by segment size, so the max IS the
+        # request whenever any segment is big enough to satisfy it).
+        self.k = None if k is None else int(k)
+        total = int(np.sum(np.asarray(num_docs, np.int64)))
+        if total >= 2**31:
+            raise ValueError(
+                f"global doc ids need {total} < 2^31 (docs are int32); "
+                "split the index across shards instead"
+            )
+        from iresearch_tpu_torch.exec.executor import entry_device
+
+        self.preps = list(preps)
+        bases = np.zeros(len(preps), np.int32)
+        np.cumsum(np.asarray(num_docs[:-1], np.int64), out=bases[1:])
+        gather, row_base = _flat_index(
+            np.stack([perm_of(p) for p in self.preps]), bases
+        )
+        dev = entry_device(device)
+        self.num_queries = self.preps[0].num_queries
+        self._gather = torch.from_numpy(gather).to(dev)
+        self._row_base = torch.from_numpy(row_base).to(dev)
+
+    def run(self, plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Global (vals [Q, k], docs [Q, k]) on the device: every
+        segment's groups, then the merge, all enqueued without a
+        synchronise. ``plain=True`` runs the kernels' plain PyTorch
+        versions (``PreparedBatch.run_grouped``)."""
+        return self.merge(
+            [g for p in self.preps for g, _qis in p.run_grouped(plain)]
+        )
+
+    def merge(self, outs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The merge alone, on ``outs``: the ``(vals, docs)`` pair of every
+        group of every segment, in ``preps`` order."""
+        k = self.k
+        if k is None:
+            k = max(v.shape[1] for v, _d in outs)
+        return _merge_flat(
+            [v for v, _d in outs], [d for _v, d in outs],
+            self._gather, self._row_base, q=self.num_queries, k=k,
+        )
+
+    def search(self, k: int) -> List[List[Tuple[int, float]]]:
+        """Fetched global top-k as [(global_doc, score), ...] per query
+        (finite-score entries only) — same convention as
+        QueryBatch.search."""
+        vals, docs = self.run()
+        vals = vals.cpu().numpy()
+        docs = docs.cpu().numpy()
+        out: List[List[Tuple[int, float]]] = []
+        for qi in range(vals.shape[0]):
+            fin = np.isfinite(vals[qi])
+            out.append(
+                [
+                    (int(d), float(v))
+                    for v, d in zip(vals[qi][fin][:k], docs[qi][fin][:k])
+                ]
+            )
+        return out

@@ -10,9 +10,9 @@ written by either package.
 package's classes of those names: class pools padded to a power of two
 plus the ``DSLICE_PAD`` zero tail, sentinel row 0, ``base``/``bmax``/
 ``bmaxf`` as int32, inline norm pools, f32 norms clamped >= 1 plus the u16
-twin when exact, the ``norms_grid`` view, dense grid pools on first use,
-and the alive mask. u32 words are held as int32 bit-views. Residency is
-per (reader, device).
+twin when exact, the ``norms_grid`` view, dense grid pools and position
+pools on first use, and the alive mask. u32 words are held as int32
+bit-views. Residency is per (reader, device).
 """
 
 from __future__ import annotations
@@ -358,6 +358,10 @@ class DeviceField:
             + self.base + self.bmax + self.bmaxf + [self.norms]
             + ([self.norms_u16] if self.norms_u16 is not None else [])
         )
+        # position pools upload on first use (pos_words()): only phrase
+        # queries touch them, and they are the largest transfer
+        self._fp = fp
+        self._pos_words: Dict[int, torch.Tensor] = {}
         self._dense_words: Dict[int, torch.Tensor] = {}
         self._norms_grid: Optional[torch.Tensor] = None
         if fp.docs_with_field > 0:
@@ -371,6 +375,19 @@ class DeviceField:
             src = self.norms_u16 if self.norms_u16 is not None else self.norms
             self._norms_grid = src.reshape(-1, BLOCK)
         return self._norms_grid
+
+    def pos_words(self, c: int) -> torch.Tensor:
+        """Packed position pool of class ``c``, rows padded to a power of
+        two (uploaded on first use)."""
+        t = self._pos_words.get(c)
+        if t is None:
+            src = self._fp.pos_words[c]
+            t = torch.from_numpy(_i32(_pad_rows(src, _pow2(src.shape[0])))).to(
+                self.device
+            )
+            self._pos_words[c] = t
+            self.device_bytes += t.nbytes
+        return t
 
     def dense_words(self, dense_cache, c: int) -> torch.Tensor:
         """Dense grid pool of class ``c`` (uploaded on first use)."""

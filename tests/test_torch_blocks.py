@@ -191,3 +191,53 @@ def test_dl_rows_widens_u16_exactly():
     np.testing.assert_array_equal(dl_rows(t).numpy(), n.astype(np.float32))
     rows = torch.tensor([1, 0, 1])
     np.testing.assert_array_equal(dl_rows(t, rows).numpy(), n[[1, 0, 1]].astype(np.float32))
+
+
+def _stream(seed, num_docs, vocab, avg_len=30):
+    """``tests/test_postings.py``'s random corpus, vectorised: a token
+    stream in (doc asc, pos asc) arrival order."""
+    rng = np.random.default_rng(seed)
+    lens = rng.poisson(avg_len, size=num_docs)
+    doc = np.repeat(np.arange(num_docs), lens)
+    pos = (np.arange(len(doc)) - np.repeat(np.cumsum(lens) - lens, lens)).astype(np.uint32)
+    return rng.integers(0, vocab, size=len(doc)), doc, pos
+
+
+INVERT_CASES = {
+    # tests/test_postings.py::TestInvert: the two corpora it inverts
+    "postings_200x50": lambda: _stream(0, 200, 50) + (50, 200),
+    "postings_97x31": lambda: _stream(1, 97, 31) + (31, 97),
+    "empty": lambda: (np.zeros(0), np.zeros(0), np.zeros(0, np.uint32), 5, 10),
+    "one_token": lambda: (np.array([3]), np.array([7]), np.array([0], np.uint32), 5, 10),
+    # one term everywhere, positions past 2^31 (the u32 view must survive)
+    "one_term_big_pos": lambda: (
+        np.zeros(300, np.int64), np.repeat(np.arange(100), 3),
+        (np.tile(np.arange(3), 100) + 2**31 + 5).astype(np.uint32), 4, 130),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INVERT_CASES))
+def test_invert_device_matches_numpy_and_jax(case):
+    """``invert_device(device="cpu")`` equals the port's ``invert_numpy``
+    field by field and bit for bit (dtypes too), and the JAX package's
+    ``invert_device`` and ``invert_numpy``."""
+    import dataclasses
+
+    from iresearch_tpu.index import invert as jinv
+    from iresearch_tpu_torch.index.invert import invert_device, invert_numpy
+
+    tid, doc, pos, num_terms, num_docs = INVERT_CASES[case]()
+    got = invert_device(tid, doc, pos, num_terms, num_docs, device="cpu")
+    refs = {
+        "invert_numpy": invert_numpy(tid, doc, pos, num_terms, num_docs),
+        "jax invert_numpy": jinv.invert_numpy(tid, doc, pos, num_terms, num_docs),
+        "jax invert_device": jinv.invert_device(tid, doc, pos, num_terms, num_docs),
+    }
+    for what, want in refs.items():
+        for f in dataclasses.fields(want):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            assert a.dtype == b.dtype and a.shape == b.shape, (what, f.name, a.dtype, b.dtype)
+            np.testing.assert_array_equal(a, b, err_msg=f"{what}.{f.name}")
+    if len(tid):
+        np.testing.assert_array_equal(got.pos_flat, np.asarray(pos)[got.order])
+        assert int(got.e_freq.sum()) == len(tid)

@@ -187,6 +187,12 @@ def _same(a, b, what):
         assert len(a) == len(b), what
         for i, (x, y) in enumerate(zip(a, b)):
             _same(x, y, f"{what}[{i}]")
+    elif dataclasses.is_dataclass(b) and not isinstance(b, (JF.Filter, JS.Scorer)):
+        # a phrase spec of a ``device_aux`` row: each package has its own
+        # class of the same name
+        assert type(a).__name__ == type(b).__name__, what
+        for f in dataclasses.fields(b):
+            _same(getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}")
     elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         a, b = np.asarray(a), np.asarray(b)
         assert a.dtype == b.dtype and a.shape == b.shape, (what, a.dtype, b.dtype, a.shape, b.shape)
@@ -346,7 +352,7 @@ def _plans_equal(pp, jp, what):
             _same(a, b, f"{what}.{f.name}")
 
 
-def _plan_both(jsr, psr, flt, scorer, wand):
+def _plan_both(jsr, psr, flt, scorer, wand, device_phrase=False):
     """(port plan, JAX plan) of one filter on one segment, compiled fresh
     by each package's PlanCompiler over its own HostQuery."""
     from iresearch_tpu.exec.plan import PlanCompiler as JaxCompiler
@@ -356,9 +362,9 @@ def _plan_both(jsr, psr, flt, scorer, wand):
 
     pflt, pscorer = to_port(flt), to_port(scorer)
     pp = PlanCompiler(HostQuery(pflt, [psr], pscorer), pscorer).compile(
-        pflt, 0, wand=wand, device_phrase=False)
+        pflt, 0, wand=wand, device_phrase=device_phrase)
     jp = JaxCompiler(JaxHostQuery(flt, [jsr], scorer), scorer).compile(
-        flt, 0, wand=wand, device_phrase=False)
+        flt, 0, wand=wand, device_phrase=device_phrase)
     return pp, jp
 
 
@@ -405,6 +411,36 @@ def test_plans_match_jax(bench20k, lists):
                 for f in dataclasses.fields(js):
                     _same(getattr(ps, f.name), getattr(js, f.name), f"{name} sky.{f.name}")
     assert PLAN_LISTS[lists] <= modes, modes
+
+
+PHRASE_PLANS = {
+    "phrase": JF.ByPhrase("body", ["t00", "t01"]),
+    "gap": JF.ByPhrase("body", ["t00", (2, "t01"), "t02"]),
+    "same_position": JF.BySamePosition([("body", "t00"), ("body", "t00")]),
+    "and_term": JF.And(JF.ByTerm("body", "t03"), JF.ByPhrase("body", ["t01", "t02"])),
+    "or_not": JF.Or(JF.ByPhrase("body", ["t00", "t00"]), JF.Not(JF.ByTerm("body", "t05"))),
+    "prefix_part": JF.ByPhrase("body", ["t00", JF.PhrasePrefix("t0")]),
+    "missing_term": JF.ByPhrase("body", ["t00", "nothere"]),
+}
+
+
+@pytest.mark.parametrize("device_phrase", [True, "keys"], ids=["device", "keys"])
+@pytest.mark.parametrize("name", sorted(PHRASE_PLANS))
+def test_phrase_plans_match_jax(cand_reader, name, device_phrase):
+    """Plans with on-device phrase leaves: ``_make_aux``'s two phrase
+    branches give the JAX package's plan, its ``device_aux`` rows (aux
+    index and spec, array for array) included, and fall through to the
+    host evaluation where the spec is None."""
+    segs = carried(cand_reader)
+    pp, jp = _plan_both(segs.jax[0], segs.port[0], PHRASE_PLANS[name], JS.BM25(),
+                        False, device_phrase)
+    _plans_equal(pp, jp, name)
+    assert len(pp.device_aux) == len(jp.device_aux)
+    on_device = name not in ("prefix_part", "missing_term") or device_phrase == "keys"
+    assert bool(pp.device_aux) == on_device, name
+    for (_a, ps), (_b, js) in zip(pp.device_aux, jp.device_aux):
+        assert type(ps).__module__.startswith("iresearch_tpu_torch.")
+        assert type(ps).__name__ == type(js).__name__
 
 
 def _host_queries(psr):

@@ -27,7 +27,6 @@ exactly.
 """
 
 import contextlib
-import dataclasses
 from collections import Counter
 from types import SimpleNamespace
 
@@ -388,12 +387,14 @@ def test_smoke_queries_match_jax(bench20k):
     psr = segs.port[0]
     single = Counter()
     for name, flt, wand in bench_mix.breadth_tasks(psr):
-        if name != "Phrase":
-            single[check_single(to_jax(flt), segs, BM25(), 10, wand=wand)] += 1
+        # Phrase runs on the device, the single query's default
+        single[check_single(to_jax(flt), segs, BM25(), 10, wand=wand,
+                            device_phrase=name == "Phrase")] += 1
     for cat in ("HighTerm", "LowTerm"):
         single[check_single(c[cat][7], segs, BM25(), 10, wand=True)] += 1
     # a lone grid term with WAND: no skyline at this size, no single-span scan
-    assert single == {"scan": 4, "wand": 1, "dslice": 1, "join": 1, "sort": 1, "gridmix": 1}
+    assert single == {"aux": 1, "scan": 4, "wand": 1, "dslice": 1, "join": 1, "sort": 1,
+                      "gridmix": 1}
     tt = bench_mix.tier_tasks(psr)
     filters = [f for _t, f, _k in tt]
     port = QueryBatch(filters, segs.port, to_port(BM25()), wand=True, device=CPU)
@@ -490,43 +491,35 @@ def test_query_batch_search_matches_jax(two_segment_reader):
     assert all(isinstance(v, np.ndarray) and v.shape == (10,) for v, _d in per_seg)
 
 
-def test_device_phrase_default_raises(cand_reader):
-    """The JAX default device_phrase=True runs phrases on the device, which
-    is not ported yet (ROADMAP queue 1 item 11)."""
+def test_device_phrase_default_runs_on_device(cand_reader):
+    """The default ``device_phrase=True`` runs a phrase of plain terms on
+    the device: the plan carries the phrase as a ``device_aux`` row, the
+    query takes the aux tier and equals the JAX package's default."""
     segs = cand_reader
-    flt = to_port(F.And(T("t00"), F.ByPhrase("body", ["t01", "t02"])))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tex.DeviceQuery(flt, segs.port, to_port(BM25()), device=CPU).execute_segment(0, 10)
+    flt = F.And(T("t00"), F.ByPhrase("body", ["t01", "t02"]))
+    tq = tex.DeviceQuery(to_port(flt), segs.port, to_port(BM25()), device=CPU)
+    assert tq.device_phrase is True and tq.plan(0).device_aux
+    assert check_single(flt, segs, BM25(), 10, device_phrase=True) == "aux"
 
 
-def test_device_aux_plan_raises(cand_reader):
-    """On-device phrases are not ported: the port's planner refuses to
-    compile one (the JAX package's plan has a ``device_aux`` row there),
-    and a plan that carries one has no tier."""
+def test_device_aux_plan_has_aux_tier(cand_reader):
+    """A plan with a ``device_aux`` row compiles as the JAX package's does
+    and has a tier; only a row the single-segment runner cannot fill (the
+    sharded executor's ``"keys"`` form) raises."""
     from iresearch_tpu.exec import DeviceQuery as JaxDeviceQuery
 
     segs = cand_reader
     flt = F.ByPhrase("body", ["t00", "t01"])
-    assert JaxDeviceQuery(flt, segs.jax, BM25()).plan(0).device_aux
-    pq = tex.DeviceQuery(to_port(flt), segs.port, to_port(BM25()), device_phrase=False,
-                         device=CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pq.compiler.compile(pq.flt, 0, device_phrase=True)
-    plan = dataclasses.replace(pq.plan(0), device_aux=((0, None),))
-    with pytest.raises(NotImplementedError, match="device_aux"):
-        group_call(
-            segs.port[0], [plan], 10, pq.scorer, CPU, sky_specs=[None], sky_M=None,
-            wand_sample=16, wand_mode="exact", single=True,
-        )
-
-
-def test_prepare_all_raises(two_segment_reader):
-    """The merge across segments on the device is not ported yet (ROADMAP
-    queue 1 item 12); ``search`` merges on the host."""
-    qb = QueryBatch(to_port(tuple(GLOBAL_QUERIES)), two_segment_reader.port,
-                    to_port(BM25()), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        qb.prepare_all(10)
+    jplan = JaxDeviceQuery(flt, segs.jax, BM25()).plan(0)
+    pq = tex.DeviceQuery(to_port(flt), segs.port, to_port(BM25()), device=CPU)
+    plan = pq.compiler.compile(pq.flt, 0, device_phrase=True)
+    assert [a for a, _s in plan.device_aux] == [a for a, _s in jplan.device_aux] == [0]
+    kw = dict(sky_specs=[None], sky_M=None, wand_sample=16, wand_mode="exact", single=True)
+    tier, _fn, args, kwargs = group_call(segs.port[0], [plan], 10, pq.scorer, CPU, **kw)
+    assert tier == "aux" and kwargs["aux_rows"] == ((True, 0),) and args[4] == ()
+    keys = pq.compiler.compile(pq.flt, 0, device_phrase="keys")
+    with pytest.raises(TypeError, match="PhraseKeysSpec"):
+        group_call(segs.port[0], [keys], 10, pq.scorer, CPU, **kw)
 
 
 def test_device_query_needs_a_device(cand_reader):

@@ -558,3 +558,134 @@ def test_wrappers_check_their_pools_once_on_card(cuda_device):
     assert all(torch.equal(x, y) for x, y in zip(first, again))
     with pytest.raises(TypeError, match="dtype"):
         dc.decode_score_rows(*a[:8], a[8].double(), 30.0, bd=8, bf=4, bn=8, scorer=sc)
+
+
+# --- the index-wide path on the card: phrases, the segment merge, inversion ---
+
+
+@pytest.fixture(scope="module")
+def card_segments():
+    """Three bench-law segments of unequal sizes (seeds 42, 43, 44), built
+    by the port. Module-scoped fixtures are set up before ``cuda_device``,
+    so this one skips without a card too, before it builds anything."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.index.segment import SegmentReader
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return [SegmentReader(f"card{si}", bench_mix.build_segment_data(n, bench_mix.SEED + si))
+            for si, n in enumerate((20_000, 5_000, 100))]
+
+
+def _card_phrases(sr):
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.search import filters as PF
+
+    term_at = bench_mix._ranked(sr)[0]
+    two = PF.ByPhrase("body", [term_at(3), term_at(4)])
+    return {
+        "two": two,
+        "gap": PF.ByPhrase("body", [term_at(2), term_at(3), (1, term_at(5))]),
+        "and": PF.And(two, PF.ByTerm("body", term_at(9))),
+        "or": PF.Or(two, PF.ByTerm("body", term_at(2000))),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scorer", [BM25(), TFIDF()], ids=["bm25", "tfidf"])
+@pytest.mark.parametrize("name", ["two", "gap", "and", "or"])
+def test_phrase_on_card_matches_plain_and_host(cuda_device, card_segments, name, scorer):
+    """The single query's default runs the phrase on the card: K3's plain
+    form launches once per part, and the top-k equals the plain-torch run,
+    the host-evaluated leaf and the numpy oracle."""
+    from iresearch_tpu_torch.exec.executor import DeviceQuery
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.search.host_eval import HostQuery
+
+    sr = card_segments[0]
+    flt, sc = _card_phrases(sr)[name], to_port(scorer)
+    dq = DeviceQuery(flt, [sr], sc)  # the card, device_phrase=True
+    plan = dq.plan(0)
+    assert plan.device_aux
+    kb.reset_launch_counts()
+    vals, docs = dq.execute_segment(0, 10)
+    assert kb.launch_counts()["decode_rows"] == sum(len(s.parts) for _a, s in plan.device_aux)
+    pv, pd = dq.execute_segment(0, 10, plain=True)
+    np.testing.assert_array_equal(docs, pd)
+    np.testing.assert_allclose(vals, pv, rtol=1e-5, atol=0.0)
+    hv, hd = DeviceQuery(flt, [sr], sc, device_phrase=False).execute_segment(0, 10)
+    np.testing.assert_allclose(vals, hv, rtol=1e-5, atol=1e-6)
+    r = HostQuery(flt, [sr], sc).execute(0)
+    fin = np.isfinite(vals)
+    assert fin.any() and r.match[docs[fin]].all()
+    np.testing.assert_allclose(vals[fin], r.score[docs[fin]], rtol=1e-5, atol=1e-6)
+    assert int(fin.sum()) == min(10, int(r.match.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scorer", [BM25(), TFIDF()], ids=["bm25", "tfidf"])
+def test_merged_batch_on_card_matches_plain_and_host_merge(cuda_device, card_segments, scorer):
+    """``prepare_all(k).run()`` on the card: no synchronise inside the
+    pass, equal to its plain-torch run and to the host merge, a 100-doc
+    segment padded to k among the three."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec.batch import QueryBatch
+
+    filters = [f for _c, f in bench_mix.task_mix(card_segments[0])[::8]]
+    qb = QueryBatch(filters, card_segments, to_port(scorer), wand=True)
+    mb = qb.prepare_all(10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vals, docs = mb.run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert vals.device == cuda_device and vals.shape == docs.shape == (len(filters), 10)
+    pv, pd = mb.run(plain=True)
+    assert torch.equal(docs, pd)
+    torch.testing.assert_close(vals, pv, rtol=1e-5, atol=0.0)
+    vals, docs = vals.cpu().numpy(), docs.cpu().numpy()
+    for qi, ref in enumerate(qb.search(10)):
+        fin = np.isfinite(vals[qi])
+        assert docs[qi][fin].tolist() == [d for d, _v in ref], qi
+        np.testing.assert_allclose(vals[qi][fin], [v for _d, v in ref], rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stream", "empty", "one_token"])
+def test_invert_device_on_card_matches_numpy(cuda_device, case):
+    import dataclasses
+
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.index.invert import invert_device, invert_numpy
+
+    if case == "stream":
+        args = bench_mix.token_stream(10_000, 43) + (bench_mix.VOCAB, 10_000)
+    elif case == "empty":
+        args = (np.zeros(0), np.zeros(0), np.zeros(0, np.uint32), 5, 10)
+    else:
+        args = (np.array([3]), np.array([7]), np.array([0], np.uint32), 5, 10)
+    got, want = invert_device(*args), invert_numpy(*args)  # device=None: the card
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert a.dtype == b.dtype and a.shape == b.shape, f.name
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+
+
+@pytest.mark.cuda
+def test_single_query_dslice_on_card(cuda_device, card_segments):
+    """A dslice group of one query (a lone sparse term through
+    ``DeviceQuery``, or alone in its batch group): the weight expanded over
+    the window's rows must reach K3's scored form contiguous."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec.executor import DeviceQuery
+
+    sr = card_segments[0]
+    flt = [f for c, f in bench_mix.task_mix(sr) if c == "LowTerm"][0]
+    dq = DeviceQuery(flt, [sr], to_port(BM25()))
+    assert dq.call(0, 10)[0] == "dslice"
+    vals, docs = dq.execute_segment(0, 10)
+    pv, pd = dq.execute_segment(0, 10, plain=True)
+    np.testing.assert_array_equal(docs, pd)
+    np.testing.assert_array_equal(vals, pv)
+    assert np.isfinite(vals[0])

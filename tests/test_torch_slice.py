@@ -191,7 +191,8 @@ assert [c[0] for c in prep.calls] == [t for t, _f, _k in tt], prep.calls
 assert single == [t for t, _f, _k in tt], single
 assert all(v.shape == (10,) for v, _d in prep.run())
 breadth = [DeviceQuery(f, [sr], BM25(), wand=w, device="cpu")
-           for n, f, w in bench_mix.breadth_tasks(sr) if n != "Phrase"]
+           for n, f, w in bench_mix.breadth_tasks(sr)]
+assert breadth[0].plan(0).device_aux  # Phrase, on the device by default
 assert all(q.execute_segment_async(0, 10)[0].shape == (10,) for q in breadth)
 print("new tiers", [c[0] for c in prep.calls])
 
