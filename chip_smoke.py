@@ -73,15 +73,30 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    phase 7, the ms of the merge alone and synchronised ms for one query
    are printed;
 11. ``invert_device`` on the second segment's token stream against
-   ``invert_numpy``, field by field, with the seconds of both.
+   ``invert_numpy``, field by field, with the seconds of both;
+12. the sharded executor over phase 10's index (``parallel/sharded.py``;
+   one process holds all three segments): the 400-query mix through
+   ``ShardedSearcher(segments, device=dev).prepare_many(mix, wand=True,
+   k_max=10).run(10)``, every segment at the global ``nd_pad``. The pass is
+   enqueued with no synchronise and fetched once; K3's scored form must
+   launch and every wrapper call of the pass is held bit for bit against
+   its plain version; the result is held against the plain-torch run
+   (docs equal, scores rtol 1e-5), against phase 10's ``prepare_all`` and
+   25 queries of the numpy oracle (the exactness gate). Two phrases
+   (``bench.py``'s Phrase and three terms with a gap) must plan to
+   ``PhraseKeysSpec`` rows and run in the keys form, against plain and the
+   oracle. Prints S, D, per_shard, nd_pad, the uniform dense layout's
+   eligible terms, stride and device bytes, the tier and query count per
+   group, the prepare seconds, QPS over one loop of 20 passes and
+   synchronised ms for one query through ``prepare``.
 
 The port and this script import nothing of ``jax`` or of the JAX package
 ``iresearch_tpu``; the run fails if either was loaded.
 
 It prints one JSON line of per-kernel results (``launches`` counts the
 400-query pass of phase 6, the tier batch of phase 8, the first runs of
-phase 9's queries and the index pass of phase 10, each read with the
-counts reset just before), then, as its last line, ``{"ok": true,
+phase 9's queries, the index pass of phase 10 and the sharded pass of
+phase 12, each read with the counts reset just before), then, as its last line, ``{"ok": true,
 "device": {...}}``. Any failure raises: the exit code is not 0 and the
 last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
 N`` runs a smaller corpus while debugging; ``--profile FILE`` adds a
@@ -319,6 +334,15 @@ def max_abs_err(torch, got, want):
     return float((got[gf].double() - want[wf].double()).abs().max())
 
 
+def shapes(keys, most=12):
+    """The list of ``keys`` (call shapes), or where it is long the
+    ``most`` commonest with their counts."""
+    keys = list(keys)
+    if len(keys) <= most:
+        return keys
+    return f"{len(Counter(keys))} shapes, commonest {Counter(keys).most_common(most)}"
+
+
 def check_k3(torch, plain, scored, what):
     """Both forms of K3 bit for bit against their plain versions on the
     recorded calls; returns the scored calls' (bytes, f32 ops)."""
@@ -341,9 +365,9 @@ def check_k3(torch, plain, scored, what):
         work = k3_score_work(a, kw, got[0])
         nbytes, flops = nbytes + work[0], flops + work[1]
     print(f"K3 vs plain ({what}): bit-exact on {len(plain)} calls "
-          f"{[(a[3].shape[0], kw['bd'], kw['bf']) for a, kw in plain]}; scored form "
+          f"{shapes((a[3].shape[0], kw['bd'], kw['bf']) for a, kw in plain)}; scored form "
           f"(docs, scores, match flags, dl) bit-exact on {len(scored)} calls "
-          f"{[(a[3].shape[0], kw['bd'], kw['bf'], kw['bn'], bool(kw.get('want_dl'))) for a, kw in scored]}")
+          f"{shapes((a[3].shape[0], kw['bd'], kw['bf'], kw['bn'], bool(kw.get('want_dl'))) for a, kw in scored)}")
     return nbytes, flops
 
 
@@ -942,10 +966,17 @@ def run_phrases(torch, sr, scorer, k, dev, smi, kern, floor):
     return total
 
 
+_ORACLE = {}  # phases 10 and 12 hold the same queries against the oracle
+
+
 def oracle_topk_index(flt, srs, scorer, k):
     """``HostQuery`` over every segment (index-wide stats), merged with
-    numpy in (score desc, global doc asc) order."""
+    numpy in (score desc, global doc asc) order; kept per query."""
     from iresearch_tpu_torch.search.host_eval import HostQuery
+
+    key = (flt, tuple(sr.serial for sr in srs), scorer, k)
+    if key in _ORACLE:
+        return _ORACLE[key]
 
     hq = HostQuery(flt, srs, scorer)
     docs, sc, base = [], [], 0
@@ -957,12 +988,14 @@ def oracle_topk_index(flt, srs, scorer, k):
         base += sr.num_docs
     docs, sc = np.concatenate(docs), np.concatenate(sc)
     o = np.lexsort((docs, -sc))[:k]
-    return docs[o], sc[o]
+    _ORACLE[key] = docs[o], sc[o]
+    return _ORACLE[key]
 
 
 def run_index(torch, srs, tasks, scorer, k, dev, smi, kind, profile):
     """Phase 10: the 400-query mix over the multi-segment index through
-    ``prepare_all(k).run()``; returns the launches of the checked pass."""
+    ``prepare_all(k).run()``; returns the launches of the checked pass and
+    its (vals, docs)."""
     from iresearch_tpu_torch.exec.batch import QueryBatch
     from iresearch_tpu_torch.index.segment import device_state
     from iresearch_tpu_torch.kernels import build as kb
@@ -1058,6 +1091,142 @@ def run_index(torch, srs, tasks, scorer, k, dev, smi, kind, profile):
           f"{sync_ms(torch, one.run):.4f} ms/query synchronised ({SINGLE_REPS} runs) on {smi}")
     if profile:
         profile_passes(torch, mb.run, profile + ".index", kind, smi)
+    return launches, (vals, docs)
+
+
+def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
+    """Phase 12: the 400-query mix over the same index through the sharded
+    executor, ``ShardedSearcher(srs, device=dev).prepare_many(mix, wand=True,
+    k_max=k).run(k)``, held against phase 10's ``prepare_all`` result
+    ``merged``; returns the launches of the checked pass."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec.phrase import PhraseKeysSpec
+    from iresearch_tpu_torch.exec.plan import PlanCompiler
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.parallel import ShardedSearcher
+    from iresearch_tpu_torch.search import filters as F
+    from iresearch_tpu_torch.search.host_eval import HostQuery
+
+    filters = [f for _c, f in tasks]
+    t1 = time.perf_counter()
+    ss = ShardedSearcher(srs, device=dev)
+    prep = ss.prepare_many(filters, scorer, wand=True, k_max=k)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t1
+    lay = ss._dense_layout("body")
+    print(f"sharded: S={ss.S} D={ss.D} per_shard={ss.per_shard} nd_pad={ss.nd_pad}; uniform "
+          f"dense layout: {len(lay.terms)} eligible terms, stride {lay.stride} rows, rows per "
+          f"class {lay.rows_c}; searcher device bytes {ss.device_bytes} (alive, norms, "
+          f"uniform pools; allocated {torch.cuda.memory_allocated(dev)} bytes); prepare "
+          f"{prep_s:.3f} s on {smi}")
+    tiers = {}
+    for t, qis, *_r in prep.calls:
+        tiers[id(qis)] = (t, len(qis))
+    print(f"sharded groups (tier, queries): {list(tiers.values())}; queries per tier "
+          f"{dict(sum((Counter({t: n}) for t, n in tiers.values()), Counter()))}")
+    kb.reset_launch_counts()
+    # nothing in the pass may wait for the device: a synchronise raises here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = prep.run(k)
+        vals_t = torch.stack([v for v, _d in out])
+        docs_t = torch.stack([d for _v, d in out])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    packed = torch.stack([vals_t.view(torch.int32), docs_t]).cpu().numpy()
+    launches = kb.launch_counts()
+    vals, docs = packed[0].view(np.float32), packed[1]
+    print(f"sharded pass: enqueued with no synchronise, one fetch of {packed.nbytes} bytes; "
+          f"launches {launches}")
+    if launches["decode_score_rows"] <= 0:
+        raise AssertionError("K3's scored form never launched in the sharded pass")
+    if vals.shape != (len(tasks), k) or not np.isfinite(vals[:, 0]).all():
+        raise AssertionError(f"sharded pass: shape {vals.shape} or a query without a hit")
+    t1 = time.perf_counter()
+    checked = check_calls(torch, prep, "sharded")
+    print(f"sharded pass, wrapper calls held against plain: {dict(checked)} "
+          f"({time.perf_counter() - t1:.3f} s)")
+    for name, n in launches.items():
+        if n > checked[name]:
+            raise AssertionError(f"kernel {name}: {n} launches in the pass, fewer calls checked")
+    plain = prep.run(k, plain=True)
+    pv = torch.stack([v for v, _d in plain]).cpu().numpy()
+    pd = torch.stack([d for _v, d in plain]).cpu().numpy()
+    np.testing.assert_array_equal(docs, pd)
+    np.testing.assert_allclose(vals, pv, rtol=1e-5, atol=0.0)
+    print(f"sharded pass vs plain-torch run: {len(tasks)} queries match "
+          f"({time.perf_counter() - t1:.3f} s since the check began)")
+    gv, gd = merged
+    for qi in range(len(tasks)):
+        fin = np.isfinite(gv[qi])
+        assert_gate(vals[qi], docs[qi], gd[qi][fin], gv[qi][fin], f"sharded q{qi} vs prepare_all")
+    print(f"sharded pass vs prepare_all: {len(tasks)} queries pass the exactness gate")
+    seen = Counter()
+    for qi, (cat, flt) in enumerate(tasks):
+        if seen[cat] < PER_CATEGORY_ORACLE:
+            seen[cat] += 1
+            wd, wv = oracle_topk_index(flt, srs, scorer, k)
+            assert_gate(vals[qi], docs[qi], wd, wv, f"sharded oracle q{qi} {cat}")
+    print(f"sharded oracle (HostQuery over all segments, phase 10's): {sum(seen.values())} "
+          f"queries {dict(seen)} pass the exactness gate")
+    # phrases in the keys form: the host makes each part's position keys,
+    # the device intersects, counts and scores. The three-term phrase takes
+    # df ranks 20-22 (phase 9's ranks 10-12 hold 2.4x the positions, and
+    # the host's key build, twice per segment, and oracle cost minutes)
+    term_at = bench_mix._ranked(srs[0])[0]
+    phrases = [("Phrase", bench_mix.breadth_tasks(srs[0])[0][1]),
+               ("Phrase3Gap", F.ByPhrase("body", [term_at(20), term_at(21), (1, term_at(22))]))]
+    for name, flt in phrases:
+        # the plan of the smallest segment (the keys form is all or none:
+        # prepare_many falls to host aux unless every segment has one)
+        comp = PlanCompiler(HostQuery(flt, ss._wrapped_segments(), scorer), scorer)
+        plan = comp.compile(flt, len(srs) - 1, device_phrase="keys", dense=True)
+        if not plan.device_aux or not isinstance(plan.device_aux[0][1], PhraseKeysSpec):
+            raise AssertionError(f"sharded {name}: the plan has no PhraseKeysSpec row")
+        t1 = time.perf_counter()
+        pp = ss.prepare_many([flt], scorer, wand=True, k_max=k)
+        ph_prep = time.perf_counter() - t1
+        if not all(kw.get("phrase_keys") for _t, _q, _f, _a, kw in pp.calls):
+            raise AssertionError(f"sharded {name}: the keys form did not run")
+        kb.reset_launch_counts()
+        got = pp.run(k)[0]
+        torch.cuda.synchronize()
+        ph_launches = {n: c for n, c in kb.launch_counts().items() if c}
+        check_calls(torch, pp, f"sharded {name}")
+        plain = pp.run(k, plain=True)[0]
+        wd, wv = oracle_topk_index(flt, srs, scorer, k)
+        gv_, gd_ = (t.cpu().numpy() for t in got)
+        pv_, pd_ = (t.cpu().numpy() for t in plain)
+        np.testing.assert_array_equal(gd_, pd_)
+        np.testing.assert_allclose(gv_, pv_, rtol=1e-5, atol=0.0)
+        assert_gate(gv_, gd_, wd, wv, f"sharded {name} vs oracle")
+        ph_all = time.perf_counter() - t1
+        nkeys = [len(sp.part_keys64[m]) for _a, sp in plan.device_aux for m in range(len(sp.part_keys64))]
+        print(f"sharded {name}: keys form in every segment's call, PhraseKeysSpec rows "
+              f"(smallest segment's keys per part {nkeys}), {int(np.isfinite(gv_).sum())} "
+              f"hits equal plain and the oracle; prepare {ph_prep:.3f} s (with the checks "
+              f"{ph_all:.3f} s), launches {ph_launches}, "
+              f"{sync_ms(torch, lambda: pp.run(k)):.4f} ms/query synchronised "
+              f"({SINGLE_REPS} runs) on {smi}")
+
+    def ms_per_pass(fn):
+        fn()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(PASSES):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t2) * 1e3 / PASSES
+
+    ms = ms_per_pass(lambda: prep.run(k))
+    print(f"sharded passes: {PASSES} x {len(tasks)} queries in {ms * PASSES / 1e3:.4f} s -> "
+          f"{len(tasks) / ms * 1e3:.1f} QPS ({ms:.4f} ms/pass) on {kind} ({smi})")
+    one = ss.prepare(tasks[0][1], scorer, k_max=k)
+    print(f"sharded single query (prepare, {len(srs)} segments + merge): "
+          f"{sync_ms(torch, lambda: one.run(k)):.4f} ms/query synchronised "
+          f"({SINGLE_REPS} runs) on {smi}")
+    if profile:
+        profile_passes(torch, lambda: prep.run(k), profile + ".sharded", kind, smi, passes=2)
     return launches
 
 
@@ -1233,12 +1402,18 @@ def main() -> int:
         srs[-1].dense_cache("body")
         print(f"segment {si}: {n} docs, {'loaded' if was_cached else 'built'}")
     print(f"index segments ready in {time.perf_counter() - t0:.3f} s")
-    index_launches = run_index(torch, srs, tasks, scorer, k, dev, smi, kind, args.profile)
+    index_launches, merged = run_index(torch, srs, tasks, scorer, k, dev, smi, kind,
+                                       args.profile)
     phase("10 index", t0)
 
     t0 = time.perf_counter()
     run_invert(torch, seg_sizes[1], bench_mix.SEED + 1, dev, smi)
     phase("11 invert", t0)
+
+    t0 = time.perf_counter()
+    sharded_launches = run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind,
+                                   args.profile, merged)
+    phase("12 sharded", t0)
     if args.profile:
         profile_passes(torch, prep.run_grouped, args.profile, kind, smi, prep.calls)
         profile_tiers(torch, tier_prep, smi)
@@ -1252,7 +1427,8 @@ def main() -> int:
     print("imports: no module of jax or iresearch_tpu loaded")
 
     counts = dict(launches_pass=launches, launches_tiers=tier_launches,
-                  launches_phrase=phrase_launches, launches_index=index_launches)
+                  launches_phrase=phrase_launches, launches_index=index_launches,
+                  launches_sharded=sharded_launches)
     for name in kb.KERNELS:
         if sum(c[name] for c in counts.values()) <= 0:
             raise AssertionError(f"kernel {name} never launched on a main path")

@@ -18,7 +18,8 @@ points run the same bodies:
   sparse aux uploads densified on the device first.
 
 A plan's on-device phrase rows (``device_aux``, ``exec/phrase.py``) are
-computed on the first run and kept with the call's other inputs;
+computed on the first run and kept with the call's other inputs (the
+keys form of those rows runs in ``parallel/sharded.py``);
 ``prepare_all`` merges the segments' results on the device
 (``exec/segmerge.py``). Every call's inputs are uploaded once at
 ``prepare``; ``run`` only launches work. A batched runner splits the query axis into chunks by a
@@ -130,18 +131,24 @@ def _run_fold(
     kern, pools, rowsets, avgdl, leaf_min, aux_sp, alive, dense_shared,
     dense_dyn, phrase=None,
     *, tree, gbits, scorer, num_leaves, k, nd, dense_static, aux_rows=(),
+    phrase_keys=None,
 ):
     """The fold tier (``exec/batch.py:_run_batch``, fold branch).
 
     ``aux_sp`` holds the host-evaluated aux leaves' sparse uploads,
     ``phrase(kern)`` the on-device phrase leaves' dense rows; ``aux_rows``
-    says, per aux leaf, which of the two it is and its place there."""
+    says, per aux leaf, which of the two it is and its place there. With
+    ``phrase_keys`` (the sharded executor's keys form), ``phrase(kern)``
+    gives per leaf its [Q, ...] key tensors instead, and
+    ``phrase_keys(chunk)`` makes the rows of each chunk of queries."""
 
     def one(xs):
         rs, lm, ax, dd, pr = xs
         am = asc = None
         if ax:
             am, asc = densify_aux(ax, nd)
+        if pr and phrase_keys is not None:
+            pr = phrase_keys(pr)
         if pr:
             # every aux leaf's row from where it was made, in leaf order
             rows = [pr[j] if dev else (am[:, j], asc[:, j]) for dev, j in aux_rows]
@@ -242,10 +249,14 @@ def _phrase_rows(sr, reps, scorer: Scorer, device):
 
     for p in reps:
         for _a, spec in p.device_aux:
+            # the keys form (PhraseKeysSpec, device_phrase="keys") runs in
+            # the sharded executor alone (parallel/sharded.py), as in the
+            # JAX package, whose QueryBatch never compiles it
             if not isinstance(spec, DevicePhraseSpec):
                 raise TypeError(
                     f"{type(spec).__name__}: only DevicePhraseSpec rows run "
-                    "here (plans compiled with device_phrase=True)"
+                    "here (plans compiled with device_phrase=True); the keys "
+                    "form runs in parallel/sharded.py"
                 )
     memo = {}
 

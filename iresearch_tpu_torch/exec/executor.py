@@ -204,7 +204,10 @@ def dense_contrib(dargs, dstat, scorer: Scorer, keep=None):
     """One dense-grid span's (score f32 [Q, nd], match bool [Q, nd])
     (``exec/executor.py:_dense_contrib``): rows [start, start + ndrows) of
     the span's class pool unpack to the doc axis. ``keep`` (bool
-    [Q, ndrows]) optionally masks rows (WAND pruning)."""
+    [Q, ndrows]) optionally masks rows (WAND pruning). Where the doc axis
+    (the norms' length) is longer than the grid, as under sharding when
+    the largest segment's padded count is not a power of two, the lanes
+    past the grid have freq 0."""
     pool, start, w, norms_g, avgdl = dargs[:5]
     bits, _leaf, ndrows = dstat[:3]
     rows = start.to(torch.int64)[:, None] + torch.arange(ndrows, device=start.device)
@@ -212,6 +215,8 @@ def dense_contrib(dargs, dstat, scorer: Scorer, keep=None):
     if keep is not None:
         freq = freq * keep[..., None].to(torch.float32)
     f = freq.reshape(start.shape[0], -1)
+    if f.shape[-1] < norms_g.shape[-1]:
+        f = torch.nn.functional.pad(f, (0, norms_g.shape[-1] - f.shape[-1]))
     sc = score_block_torch(scorer, w[:, None], f, norms_g, avgdl)
     m = f > 0
     return torch.where(m, sc, 0.0), m
@@ -407,9 +412,9 @@ def entry_device(device) -> torch.device:
     return require_cuda() if device is None else torch.device(device)
 
 
-def check_port_objects(segments, scorer) -> None:
-    """Raise unless the readers and scorer are the port's own classes: the
-    planner and kernels branch on ``isinstance`` of them."""
+def check_port_objects(segments, scorer=None) -> None:
+    """Raise unless the readers and scorer (when given) are the port's own
+    classes: the planner and kernels branch on ``isinstance`` of them."""
     for sr in segments:
         if not isinstance(sr, SegmentReader):
             raise TypeError(
@@ -417,7 +422,7 @@ def check_port_objects(segments, scorer) -> None:
                 "an iresearch_tpu_torch SegmentReader (carry_segment opens "
                 "a segment file of either package)"
             )
-    if not isinstance(scorer, Scorer):
+    if scorer is not None and not isinstance(scorer, Scorer):
         raise TypeError(f"scorer {scorer!r} is not an iresearch_tpu_torch Scorer")
 
 

@@ -158,12 +158,12 @@ def compile_phrase(
 class PhraseKeysSpec:
     """Positional keys for one segment's phrase/same-position aux leaf.
 
-    For the sharded executor (``parallel/sharded.py`` of the JAX package,
-    not ported yet): the host decodes each part's (doc, position - offset)
-    pairs into sorted int64 keys ``doc * 2^32 + shifted_pos`` at prepare
-    time (exactly the oracle's formulation, host_eval._eval_positional);
-    the device intersects the parts, counts per-doc tf and scores.
-    Keys re-encode to i32 with a mesh-uniform pos_cap before upload.
+    For the sharded executor (``parallel/sharded.py``): the host decodes
+    each part's (doc, position - offset) pairs into sorted int64 keys
+    ``doc * 2^32 + shifted_pos`` at prepare time (exactly the oracle's
+    formulation, host_eval._eval_positional); the device intersects the
+    parts, counts per-doc tf and scores (``phrase_rows``).
+    Keys re-encode to i32 with a shard-uniform pos_cap before upload.
     """
 
     field_name: str  # scoring field (dl/norms source)
@@ -271,6 +271,36 @@ def part_keys(pool, rows, gbits, ttf: int, off: int, pos_cap_log2: int, *, kern)
     return torch.sort(key).values
 
 
+def phrase_rows(keys, weight, norms, avgdl, *, scorer: Scorer, shift: int, nd: int):
+    """(match bool [Q, nd], score f32 [Q, nd]) of phrases given as sorted
+    int32 keys ``(doc << shift) + pos``, one ``[Q, NK]`` tensor per part,
+    I32_MAX-padded: the keys of part 0 found in every later part are the
+    hits, each doc's count of them its tf, scored like a term with
+    ``weight`` f32 [Q] (``exec/phrase.py:_run_phrase`` from the
+    intersection on, and the sharded executor's phrase-keys leaf)."""
+    keys0 = keys[0]
+    alive_keys = keys0 != _I32_MAX
+    for kj in keys[1:]:
+        idx = torch.searchsorted(kj, keys0)
+        found = kj.gather(-1, torch.clamp(idx, max=kj.shape[-1] - 1)) == keys0
+        alive_keys = alive_keys & found
+    # dead keys add 0.0 at nd - 1; a live key's doc is a real doc < nd, so
+    # no index reaches past its query's row (an out-of-range index is a
+    # device assert). The counts are whole numbers below 2^24: the order
+    # of the float adds cannot change them
+    q = keys0.shape[0]
+    row = torch.arange(q, dtype=torch.int64, device=keys0.device)[:, None] * nd
+    doc_of_key = torch.where(alive_keys, keys0 >> shift, nd - 1).to(torch.int64) + row
+    tf = torch.zeros(q * nd, dtype=torch.float32, device=keys0.device).index_add_(
+        0, doc_of_key.reshape(-1), alive_keys.to(torch.float32).reshape(-1)
+    ).reshape(q, nd)
+    match = tf > 0
+    sc = score_block_torch(
+        scorer, weight.reshape(q, 1), tf, norms.reshape(1, -1), avgdl
+    )
+    return match, torch.where(match, sc, 0.0)
+
+
 def run_phrase(
     pools,  # per part: (doc_words, freq_words, base, pos_words)
     rows,  # per part: (rows_d, rows_f, rows_p)
@@ -288,30 +318,16 @@ def run_phrase(
 ):
     """(match bool [nd], score f32 [nd]) of the phrase whose parts are
     given (``exec/phrase.py:_run_phrase``)."""
-    keys0 = part_keys(
-        pools[0], rows[0], gbits[0], ttfs[0], offs[0], pos_cap_log2, kern=kern
-    )
-    alive_keys = keys0 != _I32_MAX
-    for j in range(1, len(pools)):
-        kj = part_keys(
+    keys = [
+        part_keys(
             pools[j], rows[j], gbits[j], ttfs[j], offs[j], pos_cap_log2, kern=kern
-        )
-        idx = torch.searchsorted(kj, keys0)
-        found = kj[torch.clamp(idx, max=kj.shape[0] - 1)] == keys0
-        alive_keys = alive_keys & found
-    # dead keys add 0.0 at nd - 1; a live key's doc is a real doc < nd, so
-    # no index reaches nd (an out-of-range index is a device assert). The
-    # counts are whole numbers below 2^24: the order of the float adds
-    # cannot change them
-    doc_of_key = torch.where(alive_keys, keys0 >> pos_cap_log2, nd - 1)
-    tf = torch.zeros(nd, dtype=torch.float32, device=keys0.device).index_add_(
-        0, doc_of_key.to(torch.int64), alive_keys.to(torch.float32)
+        )[None]
+        for j in range(len(pools))
+    ]
+    match, score = phrase_rows(
+        keys, weight, norms, avgdl, scorer=scorer, shift=pos_cap_log2, nd=nd
     )
-    match = tf > 0
-    sc = score_block_torch(
-        scorer, weight, tf.reshape(1, -1), norms.reshape(1, -1), avgdl
-    ).reshape(-1)
-    return match, torch.where(match, sc, 0.0)
+    return match[0], score[0]
 
 
 def run_phrase_dense(

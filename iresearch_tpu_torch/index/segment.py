@@ -428,7 +428,12 @@ class DeviceSegment:
 
 def device_state(sr: SegmentReader, device) -> DeviceSegment:
     """The reader's residency on ``device``, created on first use and kept
-    on the reader (its snapshot, deletes included, is immutable)."""
+    on the reader (its snapshot, deletes included, is immutable). Only a
+    ``SegmentReader`` has one: a proxy such as the sharded planner's
+    ``parallel/dense_stack.py:_WrappedReader`` presents another dense
+    geometry and would cache the wrong grid pools."""
+    if not isinstance(sr, SegmentReader):
+        raise TypeError(f"{type(sr).__name__} is not a SegmentReader")
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

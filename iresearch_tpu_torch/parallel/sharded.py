@@ -1,0 +1,770 @@
+"""Segment-sharded query execution (``iresearch_tpu/parallel/sharded.py``).
+
+The host half is a copy of the JAX package's: ``prepare_many`` plans every
+query on every segment through ``HostQuery`` and ``PlanCompiler`` over the
+uniform dense layout (``parallel/dense_stack.py``), makes one tier uniform
+across segments per query (``dslice`` runs as ``direct``, ``join`` is
+re-pinned to ``dense`` or ``sort``, ``gridmix`` only with a uniform group
+structure), unions the dense spans and groups the queries by signature.
+Phrases take the ``"keys"`` form (``exec/phrase.py:PhraseKeysSpec``) unless
+their structure differs across segments or ``nd_pad << caplog`` reaches
+2^31; then the host evaluates them as aux leaves.
+
+The device half is PyTorch's own idiom where the JAX package has a
+``Mesh``, ``shard_map`` and ``jit``: this process loops over its own
+segments ``[rank * per_shard, (rank + 1) * per_shard)`` and, per signature
+group and segment, calls the single-segment runners of ``exec/batch.py``
+(fold with aux, WAND, the candidate tiers) on that segment's resident
+pools, at the GLOBAL ``nd_pad`` (the power of two of the largest segment)
+as every shard runs in the JAX package. Each segment's top-k, its doc base
+added, concatenates along the candidate axis; ``torch.distributed
+.all_gather`` joins the processes' candidates where the searcher has a
+group of more than one process, and one exact (score desc, doc asc)
+re-rank gives the global top-k.
+
+Per searcher and field the segments' ``norms`` (clamped to 1, padded with
+1) and per segment ``alive`` (padded with False) are held at ``nd_pad``,
+and the uniform dense pools are uploaded per segment on first use; a
+prepared batch uploads its rows once, and ``run`` only launches work.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import namedtuple
+from functools import partial
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from iresearch_tpu_torch.exec.batch import _run_candidates, _run_fold, _run_wand
+from iresearch_tpu_torch.exec.executor import (
+    KERNELS,
+    PLAIN,
+    check_port_objects,
+    entry_device,
+)
+from iresearch_tpu_torch.exec.phrase import phrase_rows
+from iresearch_tpu_torch.exec.plan import PlanCompiler
+from iresearch_tpu_torch.formats.bitpack import BITS, words_per_block
+from iresearch_tpu_torch.index.segment import _i32, device_state
+from iresearch_tpu_torch.ops.topk import topk_docs
+from iresearch_tpu_torch.search import filters as F
+from iresearch_tpu_torch.search.host_eval import HostQuery
+from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32
+
+_IMAX32 = 2**31 - 1
+
+Mesh = namedtuple("Mesh", "group rank world")
+
+
+def make_mesh(group=None) -> Mesh:
+    """The (process group, rank, world size) a searcher shards over (the
+    counterpart of the JAX package's ``make_mesh``): ``group`` when given;
+    else the default group where ``torch.distributed`` is initialized with
+    more than one process; else ``(None, 0, 1)``, one process holding every
+    segment, as on one card."""
+    import torch.distributed as dist
+
+    if group is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            return Mesh(None, 0, 1)
+        if dist.get_world_size() == 1:
+            return Mesh(None, 0, 1)
+        group = dist.group.WORLD
+    return Mesh(group, dist.get_rank(group), dist.get_world_size(group))
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _given(x):
+    """A ``phrase(kern)`` callable of ``_run_fold`` that returns ``x``."""
+    return lambda kern: x
+
+
+def _keys_rows(pr, *, consts, scorer: Scorer, nd: int):
+    """Per phrase-keys aux leaf (match bool [Q, nd], score f32 [Q, nd]) of
+    a chunk's (keys per part [Q, NK], w [Q]) (the JAX package's
+    ``sharded.py:777-806``)."""
+    return tuple(
+        phrase_rows(keys, w, norms, avgdl, scorer=scorer, shift=caplog, nd=nd)
+        for (keys, w), (norms, avgdl, caplog) in zip(pr, consts)
+    )
+
+
+class ShardedSearcher:
+    """Shards a reader's segments over the processes of a group (one
+    process on one card by default) and runs exact top-k.
+
+    ``device`` defaults to the card (raises without one); the tests pass
+    ``device="cpu"``. ``segments`` are the port's own readers."""
+
+    def __init__(self, segments: Sequence, group=None, *, device=None) -> None:
+        self.segments = list(segments)
+        check_port_objects(self.segments)
+        self.device = entry_device(device)
+        self.mesh = make_mesh(group)
+        self.D = self.mesh.world
+        S = max(1, math.ceil(len(self.segments) / self.D) * self.D)
+        self.S = S
+        self.per_shard = S // self.D
+        self.nd_pad = max(
+            [_pow2(max(1, sr.num_docs)) for sr in self.segments] or [1]
+        )
+        self._doc_base = np.zeros(S, np.int32)
+        base = 0
+        for i, sr in enumerate(self.segments):
+            self._doc_base[i] = base
+            base += sr.num_docs
+        self.total_docs = base
+        lo = self.mesh.rank * self.per_shard
+        # this process's segments; padding segments (past the real ones)
+        # hold no doc and are left out
+        self.local = [
+            si for si in range(lo, lo + self.per_shard) if si < len(self.segments)
+        ]
+        self._alive = {si: self._alive_of(si) for si in self.local}
+        self._norms: Dict[Tuple[str, int], torch.Tensor] = {}
+        self._zero_pools: Dict[tuple, tuple] = {}
+        self._dense_layouts: Dict[str, object] = {}
+        self._dense_pool_cache: Dict[Tuple[str, int, int], torch.Tensor] = {}
+
+    # --- residency at the global nd_pad ---------------------------------
+
+    def _up(self, arr, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(self.device)
+
+    def _alive_of(self, si: int) -> torch.Tensor:
+        sr = self.segments[si]
+        alive = np.zeros(self.nd_pad, np.bool_)
+        alive[: sr.num_docs] = sr.alive
+        return self._up(alive, np.bool_)
+
+    def _norms_of(self, fname: str, si: int) -> torch.Tensor:
+        """Segment ``si``'s norms of ``fname``: max(norms, 1), padded with
+        1 to ``nd_pad`` (the JAX package's ``sharded.py:162-166``)."""
+        key = (fname, si)
+        t = self._norms.get(key)
+        if t is None:
+            norms = np.ones(self.nd_pad, np.float32)
+            fp = self.segments[si].field(fname)
+            if fp is not None:
+                norms[: len(fp.norms)] = np.maximum(fp.norms, 1)
+            t = self._norms[key] = self._up(norms, np.float32)
+        return t
+
+    def _group_pool(self, si: int, fname: str, dcls: int, fcls: int, ncls: int):
+        """(doc_words, freq_words, nrm_words, base, norms) of one row group
+        on segment ``si``: the segment's resident pools, or zero pools of
+        the group's widths where it lacks the field or its norm pools
+        (every row of its groups is then the all-zero sentinel row 0)."""
+        norms = self._norms_of(fname, si)
+        sr = self.segments[si]
+        if sr.field(fname) is not None:
+            dfield = device_state(sr, self.device).field(fname)
+            if ncls < 0 or dfield.nrm_words is not None:
+                nrm = dfield.nrm_words[ncls] if ncls >= 0 else dfield.freq_words[fcls]
+                return (dfield.doc_words[dcls], dfield.freq_words[fcls], nrm,
+                        dfield.base[dcls], norms)
+        key = (dcls, fcls, ncls)
+        z = self._zero_pools.get(key)
+        if z is None:
+            dw = torch.zeros((1, words_per_block(BITS[dcls])), dtype=torch.int32,
+                             device=self.device)
+            fw = torch.zeros((1, words_per_block(BITS[fcls])), dtype=torch.int32,
+                             device=self.device)
+            nw = fw if ncls < 0 else torch.zeros(
+                (1, words_per_block(BITS[ncls])), dtype=torch.int32, device=self.device)
+            z = self._zero_pools[key] = (
+                dw, fw, nw, torch.zeros(1, dtype=torch.int32, device=self.device))
+        return z + (norms,)
+
+    @property
+    def device_bytes(self) -> int:
+        """Bytes this searcher holds on the device beside the segments' own
+        residency: alive, norms and the uniform dense pools."""
+        ts = (list(self._alive.values()) + list(self._norms.values())
+              + list(self._dense_pool_cache.values()))
+        return sum(t.nbytes for t in ts)
+
+    # --- uniform cross-shard dense layout --------------------------------
+
+    def _dense_layout(self, fname: str):
+        lay = self._dense_layouts.get(fname)
+        if lay is None:
+            from iresearch_tpu_torch.parallel.dense_stack import UniformDenseLayout
+
+            lay = UniformDenseLayout(self.segments, fname)
+            self._dense_layouts[fname] = lay
+        return lay
+
+    def _dense_pool(self, fname: str, cls: int, si: int) -> torch.Tensor:
+        key = (fname, cls, si)
+        cached = self._dense_pool_cache.get(key)
+        if cached is None:
+            pool = self._dense_layout(fname).pools_np[cls][si]
+            cached = torch.from_numpy(_i32(pool)).to(self.device)
+            self._dense_pool_cache[key] = cached
+        return cached
+
+    def _wrapped_segments(self):
+        from iresearch_tpu_torch.parallel.dense_stack import wrap_segments
+
+        class _LazyLayouts(dict):
+            def __init__(inner, outer):
+                super().__init__()
+                inner._outer = outer
+
+            def get(inner, fname, default=None):
+                lay = dict.get(inner, fname)
+                if lay is None:
+                    lay = inner._outer._dense_layout(fname)
+                    inner[fname] = lay
+                return lay
+
+        return wrap_segments(self.segments, _LazyLayouts(self))
+
+    # --- query ----------------------------------------------------------
+
+    def prepare_many(
+        self,
+        filters: Sequence[F.Filter],
+        scorer: Optional[Scorer] = None,
+        wand: bool = False,
+        wand_sample: int = 16,
+        k_max: int = 128,
+    ) -> "PreparedShardedBatch":
+        """Plan, group and upload a batch of queries once
+        (``ShardedSearcher.prepare_many``): queries are grouped by plan
+        signature, and each group runs per segment as one stacked call of
+        the tier's runner. ``k_max``: the largest top-k this prepare may
+        serve (it bounds the scored-only multiterm plans; ``run(k)``
+        rejects k beyond it)."""
+        scorer = scorer or BM25()
+        check_port_objects(self.segments, scorer)
+        for flt in filters:
+            if not isinstance(flt, F.Filter):
+                raise TypeError(f"filter {flt!r} is not an iresearch_tpu_torch Filter")
+        S = len(self.segments)
+        wsegs = self._wrapped_segments()
+        per_query = []  # (plans, mode, use_wand, uordered, phspecs, caplog)
+        self_kmax = None
+        for flt in filters:
+            prepared = HostQuery(flt, wsegs, scorer)
+            compiler = PlanCompiler(prepared, scorer)
+
+            def compile_all(device_phrase="keys", **kw):
+                plans = [
+                    compiler.compile(
+                        flt, s, wand=wand, device_phrase=device_phrase, **kw
+                    )
+                    for s in range(S)
+                ]
+                # scored-only plans are exact only for k <= kmax; honor
+                # the caller's k_max by recompiling exhaustively
+                for s, p in enumerate(plans):
+                    if 0 < p.scored_only_kmax < k_max:
+                        plans[s] = compiler.compile(
+                            flt, s, wand=wand, device_phrase=device_phrase,
+                            scored_only=False, **kw,
+                        )
+                return plans
+
+            dp = "keys"
+            plans = compile_all(device_phrase=dp, dense=True)
+            # device-phrase keys (exec/phrase.py:PhraseKeysSpec) need a
+            # shard-invariant structure: same aux slots, same part
+            # counts, and i32 key headroom. Otherwise host-eval the aux.
+            ph_struct = {
+                tuple(
+                    (ai, len(spec.part_keys64))
+                    for ai, spec in p.device_aux
+                )
+                for p in plans
+            }
+            caplog = 0
+            if len(ph_struct) != 1:
+                dp = False
+                plans = compile_all(device_phrase=dp, dense=True)
+            elif next(iter(ph_struct)):
+                max_pos = max(
+                    (
+                        spec.max_pos
+                        for p in plans
+                        for _ai, spec in p.device_aux
+                    ),
+                    default=0,
+                )
+                caplog = max(1, int(max_pos).bit_length())
+                if self.nd_pad << caplog >= 2**31:
+                    dp = False
+                    caplog = 0
+                    plans = compile_all(device_phrase=dp, dense=True)
+            for p in plans:
+                if p.scored_only_kmax > 0:
+                    self_kmax = min(
+                        self_kmax or p.scored_only_kmax, p.scored_only_kmax
+                    )
+            active = [p for p in plans if p.groups or p.dense_spans]
+            # dslice (contiguous-slice decode) shares the direct tier's
+            # rowset structure; the sharded executor runs it as "direct"
+            _norm = lambda m: "direct" if m == "dslice" else m  # noqa: E731
+            modes = {_norm(p.exec_mode) for p in active}
+            mode = None
+            if len(modes) == 1:
+                m = next(iter(modes))
+                if m == "join":
+                    # join splits groups per span (segment-dependent key
+                    # structure) — not stackable across shards; the repin
+                    # below picks dense (grid spans present) or sort
+                    mode = None
+                elif m == "gridmix":
+                    sigs = {
+                        (
+                            len(p.groups),
+                            tuple(int(g.leaf[0]) for g in p.groups),
+                        )
+                        for p in active
+                    }
+                    if len(sigs) == 1:
+                        mode = "gridmix"
+                else:
+                    mode = m
+            if mode is None:
+                # divergent tiers: re-pin. Dense-fold is universal; sort
+                # needs a covering aux-free tree.
+                if not active:
+                    mode = "dense"
+                    plans = compile_all(device_phrase=dp, modes=False, dense=True)
+                elif any(_norm(p.exec_mode) == "dense" for p in active) or any(
+                    p.dense_spans for p in plans
+                ):
+                    mode = "dense"
+                    plans = compile_all(device_phrase=dp, modes=False, dense=True)
+                else:
+                    mode = "sort"
+                    plans = compile_all(device_phrase=dp, force_mode="sort", dense=False)
+                    if any(
+                        p.exec_mode != "sort" for p in plans if p.groups
+                    ):
+                        mode = "dense"  # force_mode fell back (non-covering)
+                        plans = compile_all(device_phrase=dp, modes=False, dense=True)
+            use_wand = (
+                wand
+                and any(p.groups or p.dense_spans for p in plans)
+                and all(g.ub is not None for p in plans for g in p.groups)
+                and all(
+                    d.ub is not None for p in plans for d in p.dense_spans
+                )
+                # wand plumbing exists for the fold tiers only (plan.py
+                # disables ub emission for join/gridmix anyway)
+                and mode in ("dense", "direct", "sort")
+            )
+            # union of dense spans across shards, aligned by the
+            # shard-invariant (leaf, field, class, ndrows, start) identity
+            # (starts are term-keyed and uniform — dense_stack.py); a
+            # shard lacking the term reads its zero rows at the same
+            # start, an exact no-op
+            uspans: Dict[tuple, dict] = {}
+            for si, p in enumerate(plans):
+                for d in p.dense_spans:
+                    key = (d.leaf, d.field_name, d.cls, d.ndrows, d.start)
+                    ent = uspans.get(key)
+                    if ent is None:
+                        ent = uspans[key] = {
+                            "w": {}, "avgdl": d.avgdl, "ub": {},
+                        }
+                    # w is per SHARD: multiterm sampling scores only the
+                    # sampled (segment, term) visits (w=0 elsewhere)
+                    ent["w"][si] = d.w
+                    if d.ub is not None:
+                        ent["ub"][si] = d.ub
+            uordered = [
+                (k[0], k[1], k[2], k[3], k[4], v["w"], v["avgdl"], v["ub"])
+                for k, v in sorted(uspans.items())
+            ]
+            # phrase-keys aux: per aux slot, the per-shard specs (same
+            # structure across shards — checked above)
+            phspecs = []
+            if dp == "keys" and plans[0].device_aux:
+                for pi, (ai, _spec0) in enumerate(plans[0].device_aux):
+                    phspecs.append(
+                        (ai, [p.device_aux[pi][1] for p in plans])
+                    )
+            per_query.append((plans, mode, use_wand, uordered, phspecs, caplog))
+        self._last_kmax = self_kmax  # None = exhaustive for any k
+
+        groups_by_sig: Dict[tuple, List[int]] = {}
+        for qi, (plans, mode, use_wand, uordered, phspecs, caplog) in enumerate(
+            per_query
+        ):
+            p0 = plans[0]
+            qkeys = tuple(sorted({
+                (g.field_name, g.dcls, g.fcls, g.ncls)
+                for p in plans
+                for g in p.groups
+            }))
+            # dense structure: per-span static geometry, start excluded
+            # (dynamic, stacked along Q)
+            dkeys = tuple((u[0], u[1], u[2], u[3]) for u in uordered)
+            A = max(
+                [0] + [
+                    0 if p.aux_pairs is None else len(p.aux_pairs)
+                    for p in plans
+                ]
+            )
+            rmax = {}
+            for p in plans:
+                for g in p.groups:
+                    kk = (g.field_name, g.dcls, g.fcls, g.ncls)
+                    rmax[kk] = max(rmax.get(kk, 8), len(g.rows_d))
+            # phrase static structure: (aux_idx, nparts, key buckets,
+            # caplog, score-field) per aux slot
+            pkeys_sig = tuple(
+                (
+                    ai,
+                    len(specs[0].part_keys64),
+                    tuple(
+                        _pow2(
+                            max(
+                                [8]
+                                + [len(sp.part_keys64[m]) for sp in specs]
+                            )
+                        )
+                        for m in range(len(specs[0].part_keys64))
+                    ),
+                    caplog,
+                    specs[0].field_name,
+                )
+                for ai, specs in phspecs
+            )
+            sig = (
+                p0.tree, p0.num_leaves, mode, use_wand, qkeys, A,
+                tuple(_pow2(rmax[kk]) for kk in qkeys),
+                dkeys,
+                pkeys_sig,
+            )
+            groups_by_sig.setdefault(sig, []).append(qi)
+
+        groups, calls = [], []
+        for sig, qis in groups_by_sig.items():
+            gi = len(groups)
+            group, gcalls = self._group_calls(
+                sig, qis, per_query, scorer, wand_sample, k_max
+            )
+            groups.append(group)
+            calls += [c + (gi,) for c in gcalls]
+        return PreparedShardedBatch(self, groups, calls, kmax=self_kmax)
+
+    def _group_calls(self, sig, qis, per_query, scorer, wand_sample, k_max):
+        """((query_indices, mode, use_wand, cap), [(tier, query_indices,
+        runner, args, kwargs, segment)]) of one signature group: the
+        [S, Q, ...] host arrays of the JAX package's ``sharded.py:437-606``,
+        then per local segment its slices uploaded and the tier's runner."""
+        tree, num_leaves, mode, use_wand, qkeys, A, Rs, dkeys, pkeys_sig = sig
+        # θ pruning is useless when the sampled phase already decodes
+        # every row (same rule as exec/batch.py); dense spans keep it
+        # (rows per span = ndrows >> sample)
+        use_wand = use_wand and (
+            max(Rs, default=0) > wand_sample or bool(dkeys)
+        )
+        S = self.S
+        Q = len(qis)
+        G = len(qkeys)
+        avgdl = np.ones(max(G, 1), np.float32)
+        gleaf = [0] * max(G, 1)
+        cols = [("rows_d", np.int32), ("rows_f", np.int32), ("rows_n", np.int32),
+                ("weight", np.float32), ("leaf", np.int32)]
+        if use_wand:
+            cols += [("ub", np.float32), ("other", np.float32)]
+        rowsets_np = []
+        for gi, key in enumerate(qkeys):
+            R = Rs[gi]
+            # padding rows: the sentinel row 0, ub -inf (sorts last)
+            arrs = [np.full((S, Q, R), -np.inf if name == "ub" else 0, dt)
+                    for name, dt in cols]
+            for j, qi in enumerate(qis):
+                for i, p in enumerate(per_query[qi][0]):
+                    for gi2, g in enumerate(p.groups):
+                        if (g.field_name, g.dcls, g.fcls, g.ncls) != key:
+                            continue
+                        for arr, (name, _dt) in zip(arrs, cols):
+                            src = getattr(g, name)
+                            arr[i, j, : len(src)] = src
+                        avgdl[gi] = p.group_avgdl[gi2]
+                        gleaf[gi] = int(g.leaf[0])
+            rowsets_np.append(arrs)
+        leaf_min_b = np.stack([per_query[qi][0][0].leaf_min_match for qi in qis])
+        # dense-grid spans from the uniform layout: starts/weights stack
+        # along Q (uniform across shards); weights and WAND bounds per shard
+        dense_np, dense_static = [], []
+        for di, (dleaf, fname, cls, ndrows) in enumerate(dkeys):
+            starts = np.zeros(Q, np.int32)
+            ws = np.zeros((S, Q), np.float32)
+            davg = 1.0
+            ub = np.full((S, Q, ndrows), -np.inf, np.float32) if use_wand else None
+            other = np.zeros((S, Q), np.float32) if use_wand else None
+            for j, qi in enumerate(qis):
+                u = per_query[qi][3][di]
+                starts[j] = u[4]
+                for si, w_s in u[5].items():
+                    ws[si, j] = w_s
+                davg = u[6]
+                if use_wand:
+                    for si, ub_s in u[7].items():
+                        ub[si, j, : len(ub_s)] = ub_s
+                    for si, p in enumerate(per_query[qi][0]):
+                        for d in p.dense_spans:
+                            if (d.leaf, d.field_name, d.cls, d.ndrows,
+                                    d.start) == (dleaf, fname, cls, ndrows, u[4]):
+                                other[si, j] = d.other
+            dense_np.append((fname, cls, starts, ws, davg, ub, other))
+            dense_static.append((BITS[cls], dleaf, ndrows, True))
+        # phrase-keys aux: per aux slot, per part i32 keys [S, Q, NK]
+        # (IMAX-padded), per-shard weights [S, Q], the score field's avgdl
+        phrase_np = []
+        for pi, (ai, nparts, buckets, caplog_a, fld) in enumerate(pkeys_sig):
+            keys_parts = []
+            for m in range(nparts):
+                karr = np.full((S, Q, buckets[m]), _IMAX32, np.int32)
+                for j, qi in enumerate(qis):
+                    for si, sp in enumerate(per_query[qi][4][pi][1]):
+                        k64 = sp.part_keys64[m]
+                        if len(k64):
+                            k32 = ((k64 >> 32) << caplog_a) | (k64 & 0xFFFFFFFF)
+                            karr[si, j, : len(k64)] = k32.astype(np.int32)
+                keys_parts.append(karr)
+            w_arr = np.zeros((S, Q), np.float32)
+            pavg = 1.0
+            for j, qi in enumerate(qis):
+                for si, sp in enumerate(per_query[qi][4][pi][1]):
+                    w_arr[si, j] = sp.weight
+                    pavg = sp.avgdl
+            phrase_np.append((ai, keys_parts, w_arr, pavg, caplog_a, fld))
+        lanes = (sum(Rs) if mode != "dense" else 0) * 128
+        cap = lanes if mode in ("direct", "sort", "join") and not dkeys else self.nd_pad
+        kk = min(k_max, self.nd_pad, cap)
+        if mode != "dense":
+            tier = mode
+        elif use_wand:
+            tier = "wand"
+        else:
+            tier = "aux" if A else "fold"
+
+        up = self._up
+        avgdl_t = up(avgdl, np.float32)
+        leaf_min_t = up(leaf_min_b, np.int32)
+        davg_t = [up(np.float32(d[4]), np.float32) for d in dense_np]
+        starts_t = [up(d[2], np.int32) for d in dense_np]
+        gbits = tuple(
+            (BITS[dc], BITS[fc], BITS[nc] if nc >= 0 else -1)
+            for _f, dc, fc, nc in qkeys
+        )
+        common = dict(
+            tree=tree, gbits=gbits, scorer=scorer, num_leaves=num_leaves,
+            k=kk, nd=self.nd_pad, dense_static=tuple(dense_static),
+        )
+        dev_slots = [ph[0] for ph in phrase_np]
+        calls = []
+        for si in self.local:
+            pools = tuple(self._group_pool(si, *key) for key in qkeys)
+            rowsets = tuple(
+                tuple(up(arr[si], dt) for arr, (_n, dt) in zip(arrs, cols))
+                for arrs in rowsets_np
+            )
+            dense_shared = tuple(
+                (self._dense_pool(fname, cls, si), self._norms_of(fname, si), davg_t[di])
+                for di, (fname, cls, *_r) in enumerate(dense_np)
+            )
+            dense_dyn = []
+            for di, (_f, _c, _st, ws, _a, ub, other) in enumerate(dense_np):
+                dd = (starts_t[di], up(ws[si], np.float32))
+                if use_wand:
+                    dd += (up(ub[si], np.float32), up(other[si], np.float32))
+                dense_dyn.append(dd)
+            dense_dyn = tuple(dense_dyn)
+            alive = self._alive[si]
+            if mode != "dense":
+                args = (pools, rowsets, avgdl_t, leaf_min_t, alive, None,
+                        dense_shared, dense_dyn)
+                kwargs = dict(
+                    common, mode=mode, driver_gi=-1,
+                    group_leaf=tuple(gleaf[:G]), wand=use_wand,
+                    sample=wand_sample, wand_mode="exact",
+                )
+                calls.append((tier, qis, _run_candidates, args, kwargs, si))
+                continue
+            if use_wand:
+                args = (pools, rowsets, avgdl_t, leaf_min_t, alive,
+                        dense_shared, dense_dyn)
+                kwargs = dict(common, sample=wand_sample, wand_mode="exact")
+                calls.append((tier, qis, _run_wand, args, kwargs, si))
+                continue
+            # host aux leaves: sparse per-segment uploads, densified by the
+            # runner; the phrase-keys leaves overwrite their slots
+            aux_sp, aux_rows = [], []
+            for a in range(A):
+                if a in dev_slots:
+                    aux_rows.append((True, dev_slots.index(a)))
+                    continue
+                aux_rows.append((False, len(aux_sp)))
+                pairs = []
+                for qi in qis:
+                    ap = per_query[qi][0][si].aux_pairs
+                    pairs.append(ap[a] if ap is not None and a < len(ap)
+                                 else (np.zeros(0, np.int32), np.zeros(0, np.float32)))
+                Mp = _pow2(max(8, max(len(d) for d, _v in pairs)))
+                docs = np.full((Q, Mp), _IMAX32, np.int32)
+                vals = np.zeros((Q, Mp), np.float32)
+                for j, (d, v) in enumerate(pairs):
+                    docs[j, : len(d)] = d
+                    vals[j, : len(v)] = v
+                aux_sp.append((up(docs, np.int32), up(vals, np.float32)))
+            phrase, keys_fn = None, None
+            if phrase_np:
+                phrase = _given(tuple(
+                    (tuple(up(karr[si], np.int32) for karr in parts), up(w_arr[si], np.float32))
+                    for _ai, parts, w_arr, _pavg, _cl, _fld in phrase_np
+                ))
+                keys_fn = partial(
+                    _keys_rows, scorer=scorer, nd=self.nd_pad,
+                    consts=tuple(
+                        (self._norms_of(fld, si), f32(pavg), caplog_a)
+                        for _ai, _p, _w, pavg, caplog_a, fld in phrase_np
+                    ),
+                )
+            args = (pools, rowsets, avgdl_t, leaf_min_t, tuple(aux_sp), alive,
+                    dense_shared, dense_dyn, phrase)
+            kwargs = dict(common, aux_rows=tuple(aux_rows), phrase_keys=keys_fn)
+            calls.append((tier, qis, _run_fold, args, kwargs, si))
+        return (qis, mode, use_wand, cap), calls
+
+    def _merge(self, parts, q: int, kk: int):
+        """Global (vals [q, kk], docs [q, kk]) of the local segments' top-k
+        lists (global docs): concatenated along the candidate axis, joined
+        across the group's processes, re-ranked by (score desc, doc asc)
+        (the JAX package's ``sharded.py:848-863``)."""
+        dev = self.device
+        pad = self.per_shard - len(parts)
+        if pad:  # padding segments: no candidate
+            parts = list(parts) + [(
+                torch.full((q, kk * pad), float("-inf"), dtype=torch.float32, device=dev),
+                torch.zeros((q, kk * pad), dtype=torch.int32, device=dev),
+            )]
+        vals = torch.cat([v for v, _d in parts], dim=1)
+        docs = torch.cat([d for _v, d in parts], dim=1)
+        if self.D > 1:
+            import torch.distributed as dist
+
+            gv = [torch.empty_like(vals) for _ in range(self.D)]
+            gd = [torch.empty_like(docs) for _ in range(self.D)]
+            dist.all_gather(gv, vals, group=self.mesh.group)
+            dist.all_gather(gd, docs, group=self.mesh.group)
+            vals, docs = torch.cat(gv, dim=1), torch.cat(gd, dim=1)
+        return topk_docs(vals, docs, kk)
+
+    def search(
+        self, flt: F.Filter, scorer: Optional[Scorer] = None, k: int = 10
+    ) -> List[Tuple[int, float]]:
+        vals, docs = self.search_arrays(flt, scorer, k)
+        out = []
+        for v, d in zip(vals.cpu().numpy(), docs.cpu().numpy()):
+            if math.isinf(v) and v < 0:
+                continue
+            out.append((int(d), float(v)))
+        return out
+
+    def search_arrays(self, flt: F.Filter, scorer: Optional[Scorer], k: int):
+        return self.prepare(flt, scorer).run(k)
+
+    def prepare(
+        self,
+        flt: F.Filter,
+        scorer: Optional[Scorer] = None,
+        wand: bool = False,
+        k_max: int = 128,
+    ) -> "PreparedShardedQuery":
+        """Plan and upload one query once; the returned query's ``run(k)``
+        only launches work. The same machinery as ``prepare_many`` with
+        Q = 1; ``k_max`` bounds scored-only multiterm plans."""
+        return PreparedShardedQuery(
+            self.prepare_many([flt], scorer, wand=wand, k_max=k_max)
+        )
+
+
+class PreparedShardedBatch:
+    """A sharded batch resident on the device; ``run`` only launches work."""
+
+    def __init__(self, searcher: ShardedSearcher, groups, calls, kmax=None) -> None:
+        self.searcher = searcher
+        # per signature group: (query_indices, mode, use_wand, cap), cap
+        # the candidate lanes that bound its k
+        self.groups = groups
+        # per (group, local segment): (tier, query_indices, runner, args,
+        # kwargs, segment, group index)
+        self._calls = calls
+        self.num_queries = sum(len(g[0]) for g in groups)
+        self._kmax = kmax  # None = exhaustive for any k
+
+    @property
+    def calls(self):
+        """[(tier, query_indices, runner, args, kwargs)], one per (group,
+        local segment) in run order, at the prepared ``k_max``, for
+        checking a kernel at the real shapes (as ``PreparedBatch.calls``)."""
+        return [c[:5] for c in self._calls]
+
+    def run(self, k: int, plain: bool = False):
+        """Per-query (scores f32 [k'], global docs i32 [k']) tensors on the
+        device, k' = min(k, nd_pad, the group's lanes); -inf scores are
+        non-matches. ``plain=True`` runs the kernels' plain versions."""
+        if self._kmax is not None and k > self._kmax:
+            raise ValueError(
+                f"prepared for top-k <= {self._kmax} (scored-only multiterm"
+                f" plans); re-prepare with k_max >= {k}"
+            )
+        s = self.searcher
+        kern = PLAIN if plain else KERNELS
+        parts = [[] for _ in self.groups]
+        for _tier, _qis, fn, args, kwargs, si, gi in self._calls:
+            kk = min(k, s.nd_pad, self.groups[gi][3])
+            vals, docs = fn(kern, *args, **dict(kwargs, k=kk))
+            parts[gi].append((vals, docs + int(s._doc_base[si])))
+        out = [None] * self.num_queries
+        for (qis, _mode, _wand, cap), got in zip(self.groups, parts):
+            vals, docs = s._merge(got, len(qis), min(k, s.nd_pad, cap))
+            for j, qi in enumerate(qis):
+                out[qi] = (vals[j], docs[j])
+        return out
+
+    def top_k(self, k: int) -> List[List[Tuple[int, float]]]:
+        out = []
+        for vals, docs in self.run(k):
+            hits = []
+            for v, d in zip(vals.cpu().numpy(), docs.cpu().numpy()):
+                if math.isinf(v) and v < 0:
+                    continue
+                hits.append((int(d), float(v)))
+            out.append(hits[:k])
+        return out
+
+
+class PreparedShardedQuery:
+    """A prepared sharded query: ``run(k)`` only launches work. A Q = 1
+    view of ``PreparedShardedBatch``."""
+
+    def __init__(self, batch: PreparedShardedBatch) -> None:
+        self._batch = batch
+        self.searcher = batch.searcher
+
+    def run(self, k: int, plain: bool = False):
+        """(scores f32 [k'], global docs i32 [k']) on the device."""
+        return self._batch.run(k, plain)[0]
+
+    def top_k(self, k: int) -> List[Tuple[int, float]]:
+        return self._batch.top_k(k)[0]

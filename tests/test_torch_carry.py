@@ -481,3 +481,94 @@ def test_host_query_matches_jax(bench20k, cand_reader, scorer):
         np.testing.assert_array_equal(g.match, w.match, err_msg=repr(flt))
         np.testing.assert_array_equal(g.score, w.score, err_msg=repr(flt))
         assert got.top_k(10) == want.top_k(10)
+
+
+# --- the stdlib-only utils copies ------------------------------------------
+
+
+def _log_run(m):
+    seen = []
+    m.set_callback(lambda level, msg: seen.append((int(level), msg)))
+    try:
+        m.info("a %d", 1)
+        m.warn("b")
+        m.error("c %s %s", "x", 2)
+        m.debug("d")
+        m.log(m.Level.TRACE, "e %r", (1,))
+    finally:
+        m.set_callback(None)
+    return seen, [(lv.name, int(lv)) for lv in m.Level]
+
+
+def _timer_run(m):
+    reg = m.TimerRegistry()
+    for name in ("a", "b", "a"):
+        with reg.scoped(name):
+            pass
+    calls = []
+    reg.visit(lambda name, count, ns: calls.append((name, count)) or True)
+    counts = {k: v[0] for k, v in reg.stats().items()}
+    flushed = {k: v[0] for k, v in reg.flush_stats().items()}
+    return sorted(calls), counts, flushed, sorted(reg.stats())
+
+
+def _pools_run(m):
+    made = []
+    pool = m.BoundedObjectPool(lambda: made.append(1) or len(made), 2)
+    a, b = pool.acquire(), pool.acquire()
+    none = pool.acquire(timeout=0.01)
+    pool.release(a)
+    with pool.lease() as c:
+        leased = c
+    up = m.UnboundedObjectPool(lambda: [], max_cached=1)
+    x = up.acquire()
+    up.release(x)
+    same = up.acquire() is x
+    wg = m.WaitGroup()
+    out = []
+    tp = m.ThreadPool(3, name="t")
+    for i in range(20):
+        tp.submit(lambda i=i: out.append(i * i), wg)
+    done = wg.wait(timeout=30)
+    tp.stop()
+    return (a, b, none, leased, len(made), same, done, sorted(out))
+
+
+def _resource_run(m):
+    rm = m.ResourceManager(lambda cat, cur, delta: cur + delta <= 100)
+    rm.increase("pool", 60)
+    try:
+        rm.increase("pool", 50)
+        err = None
+    except m.ResourceLimitExceeded as e:
+        err = (type(e).__mro__[1].__name__, str(e))
+    rm.decrease("pool", 10)
+    rm.increase("x", 5)
+    old = m.set_manager(rm)
+    now = m.manager() is rm
+    m.set_manager(old)
+    return err, rm.used("pool"), rm.snapshot(), now
+
+
+def _metrics_run(m):
+    reg = m.MetricsRegistry()
+    reg.gauge("irs_g", 2.5, {"b": "1", "a": "2"}, help_="a gauge")
+    reg.counter("irs_c", 2, help_="a counter")
+    reg.counter("irs_c", 3, {"k": "v"})
+    # no gateway answers on the loopback discard port: False, no raise
+    return reg.render(), reg.counter_value("irs_c"), reg.push("127.0.0.1:9", timeout=0.5)
+
+
+@pytest.mark.parametrize("name", ["log", "timer", "pools", "resource", "metrics"])
+def test_utils_copies_match_jax(name):
+    """The port's copies of ``utils/{log,timer,pools,resource}.py`` and its
+    ``metrics.py`` (with ``push``) give the JAX package's results on the
+    same calls."""
+    import importlib
+
+    run = globals()[f"_{name}_run"]
+    got = run(importlib.import_module(f"iresearch_tpu_torch.utils.{name}"))
+    want = run(importlib.import_module(f"iresearch_tpu.utils.{name}"))
+    assert got == want
+    if name == "metrics":
+        assert got[2] is False

@@ -1,0 +1,435 @@
+"""The port's segment-sharded execution (``parallel/sharded.py``,
+``parallel/dense_stack.py``) vs the JAX package's ``ShardedSearcher`` on the
+CPU.
+
+Two indexes (and a few small ones of single tests), written by the JAX
+package and carried to the port through the segment file (``carried``);
+filters and scorers go through ``to_port``:
+
+* ``tests/test_sharded.py``'s reader: 400 docs in seven segments, one doc
+  deleted;
+* four 16,384-doc segments from ``tests/test_sharded_scale.py``'s
+  ``_build_segment``, large enough for the uniform dense layout, the dense
+  fold, gridmix and WAND.
+
+The JAX searcher runs on ``conftest.py``'s 8 virtual CPU devices (fewer
+where a test says why), so its ``S`` pads to 8; the port's one process holds every segment (``S`` = the
+segment count, ``per_shard`` = ``S``). The results are held against each
+other with the exactness gate (``assert_topk_near``: scores rtol 1e-5, docs
+equal except inside near-ties; XLA on the CPU rounds some lanes of the same
+score one ulp apart) and against the port's ``HostQuery``; the grouping and
+tier per query, the uniform dense layout and the phrase-keys form against
+the JAX package's.
+"""
+
+import dataclasses
+import os
+import pickle
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from iresearch_tpu.index.reader import DirectoryReader  # noqa: E402
+from iresearch_tpu.index.writer import Field, IndexWriter, IndexWriterOptions  # noqa: E402
+from iresearch_tpu.search import filters as F  # noqa: E402
+from iresearch_tpu.search.scorers import BM25, TFIDF  # noqa: E402
+from iresearch_tpu.store.directory import MemoryDirectory  # noqa: E402
+from iresearch_tpu_torch.exec.phrase import PhraseKeysSpec  # noqa: E402
+from iresearch_tpu_torch.parallel import ShardedSearcher, make_mesh  # noqa: E402
+from iresearch_tpu_torch.search.host_eval import HostQuery  # noqa: E402
+from test_torch_carry import _same, carried, carry, to_port  # noqa: E402
+from test_torch_exec import assert_topk_near  # noqa: E402
+from topk_util import assert_topk_equiv  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORDS = [
+    "ant", "bee", "cat", "dog", "elk", "fox", "gnu", "hen", "ibis", "jay",
+    "kite", "lark", "mole", "newt", "owl", "pig", "quail", "rat", "seal", "toad",
+]
+QUERIES = [
+    F.ByTerm("body", "fox"),
+    F.ByTerm("body", "toad"),
+    F.Or(F.ByTerm("body", "fox"), F.ByTerm("body", "dog")),
+    F.And(F.ByTerm("body", "ant"), F.ByTerm("body", "bee")),
+    F.Or(F.ByTerm("body", "ant"), F.ByTerm("body", "bee"), F.ByTerm("body", "cat"), min_match=2),
+    F.ByPrefix("body", "s"),
+    F.And(F.ByTerm("body", "ant"), F.Not(F.ByTerm("body", "cat"))),
+    F.ByPhrase("body", ["ant", "bee"]),
+]
+# ``test_batched_wand_sharded``'s list
+WAND_QUERIES = QUERIES + [
+    F.Or(*[F.ByTerm("body", w) for w in ("fox", "dog", "owl", "rat")]),
+    F.ByTerm("body", "quail"),
+]
+SCALE_QUERIES = [
+    F.ByTerm("body", "t00000"),  # hottest: dense
+    F.ByTerm("body", "t05000"),  # mid: sparse tiers
+    F.Or(F.ByTerm("body", "t00001"), F.ByTerm("body", "t00002")),
+    F.Or(F.ByTerm("body", "t00000"), F.ByTerm("body", "t09000")),
+    F.Or(F.ByTerm("body", "t00000"), F.ByTerm("body", "t00300")),  # gridmix
+    F.And(F.ByTerm("body", "t00000"), F.ByTerm("body", "t06000")),
+    F.ByPrefix("body", "t001", scored_terms_limit=16),
+    F.ByPhrase("body", ["t00000", "t00001"]),
+    F.And(F.ByTerm("body", "t00003"), F.ByPhrase("body", ["t00000", (2, "t00002")])),
+]
+
+
+@pytest.fixture(scope="module")
+def segs():
+    """``tests/test_sharded.py``'s reader (seven segments, doc 13 deleted)."""
+    rng = np.random.default_rng(11)
+    d = MemoryDirectory()
+    with IndexWriter(d, IndexWriterOptions(invert_backend="numpy")) as w:
+        for i in range(400):
+            n = int(rng.integers(2, 20))
+            idx = np.minimum(rng.zipf(1.5, size=n) - 1, len(WORDS) - 1)
+            w.insert([
+                Field("body", " ".join(WORDS[j] for j in idx), analyzer="segmentation"),
+                Field("id", str(i), index=True, store=True),
+            ])
+            if i % 65 == 64:
+                w.commit()
+        w.commit()
+        w.remove(F.ByTerm("id", "13"))
+        w.commit()
+    return carried(DirectoryReader.open(d))
+
+
+@pytest.fixture(scope="module")
+def scale():
+    """Four 16,384-doc segments of ``tests/test_sharded_scale.py``."""
+    from test_sharded_scale import _build_segment
+
+    jsegs = [_build_segment(100 + i, 16_384) for i in range(4)]
+    return jsegs, [carry(sr) for sr in jsegs]
+
+
+@pytest.fixture(scope="module")
+def searchers(segs):
+    from iresearch_tpu.parallel import ShardedSearcher as JaxSearcher
+    from iresearch_tpu.parallel import make_mesh as jax_mesh
+
+    return JaxSearcher(segs.jax, jax_mesh()), ShardedSearcher(segs.port, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def scale_searchers(scale):
+    """The JAX searcher on four of the eight devices: its uniform dense
+    pools stack the real segments only, so ``S`` must not pad."""
+    import jax
+
+    from iresearch_tpu.parallel import ShardedSearcher as JaxSearcher
+    from iresearch_tpu.parallel import make_mesh as jax_mesh
+
+    jsegs, psegs = scale
+    return (JaxSearcher(jsegs, jax_mesh(jax.devices()[:4])),
+            ShardedSearcher(psegs, device="cpu"))
+
+
+def _groups(jprep, pprep):
+    """(JAX, port) per signature group: query indices, mode, WAND."""
+    want = [(list(q), st["mode"], st["use_wand"]) for q, _a, st, _l in jprep._calls]
+    got = [(list(q), m, w) for q, m, w, _cap in pprep.groups]
+    return want, got
+
+
+def _hold(filters, searchers, port_segs, scorer, wand, k=10):
+    """One ``prepare_many`` in each package over ``filters``: the same
+    groups and tiers, every query's top-k through the gate against the JAX
+    result and against the port's ``HostQuery`` over all segments; returns
+    both prepared batches, the JAX package's first."""
+    js, ps = searchers
+    jprep = js.prepare_many(filters, scorer, wand=wand)
+    pprep = ps.prepare_many([to_port(f) for f in filters], to_port(scorer), wand=wand)
+    want, got = _groups(jprep, pprep)
+    assert got == want
+    assert pprep._kmax == jprep._kmax
+    for flt, (jv, jd), (pv, pd) in zip(filters, jprep.run(k), pprep.run(k)):
+        assert_topk_near((pv.numpy(), pd.numpy()), (np.asarray(jv), np.asarray(jd)))
+        hits = [(int(d), float(v)) for v, d in zip(pv.numpy(), pd.numpy()) if np.isfinite(v)]
+        assert_topk_equiv(hits, HostQuery(to_port(flt), port_segs, to_port(scorer)).top_k(k))
+    return jprep, pprep
+
+
+def test_searcher_shape(searchers, segs):
+    """S, per_shard, nd_pad and the doc bases as the JAX package computes
+    them for one device per segment group: one process holds all seven."""
+    js, ps = searchers
+    assert (ps.D, ps.S, ps.per_shard) == (1, 7, 7) and ps.per_shard >= 2
+    assert (js.D, js.S, js.per_shard) == (8, 8, 1)
+    assert ps.nd_pad == js.nd_pad == 128
+    assert ps.total_docs == js.total_docs == 400
+    np.testing.assert_array_equal(ps._doc_base, js._doc_base[: ps.S])
+    assert ps.local == list(range(7)) and make_mesh() == (None, 0, 1)
+
+
+@pytest.mark.parametrize("scorer", [BM25(), TFIDF()], ids=["bm25", "tfidf"])
+def test_prepare_many_matches_jax(searchers, segs, scorer):
+    """``QUERIES`` through one ``prepare_many`` each, without WAND."""
+    _jprep, pprep = _hold(QUERIES, searchers, segs.port, scorer, False)
+    assert {m for _q, m, _w, _c in pprep.groups} >= {"direct", "sort", "dense"}
+
+
+def test_wand_matches_jax(searchers, segs):
+    """``test_batched_wand_sharded``'s list with WAND; a second run gives
+    the same results."""
+    _jprep, pprep = _hold(WAND_QUERIES, searchers, segs.port, BM25(), True)
+    a, b = pprep.top_k(10), pprep.top_k(10)
+    assert a == b
+
+
+def test_prepare_and_search_match_jax(searchers, segs):
+    """``prepare`` (Q = 1) and ``search`` against the JAX package's."""
+    js, ps = searchers
+    flt = F.Or(F.ByTerm("body", "fox"), F.ByTerm("body", "hen"))
+    pq = ps.prepare(to_port(flt), to_port(BM25()))
+    assert pq.top_k(10) == pq.top_k(10)
+    assert_topk_near([x.numpy() for x in pq.run(10)],
+                     [np.asarray(x) for x in js.prepare(flt, BM25()).run(10)])
+    got = ps.search(to_port(flt), to_port(BM25()), k=10)
+    assert_topk_equiv(got, js.search(flt, BM25(), k=10))
+    assert all(isinstance(d, int) for d, _s in got) and len(got) == 10
+
+
+def test_scale_matches_jax(scale_searchers, scale):
+    """The 4 x 16,384-doc index with WAND, as ``test_sharded_scale``: the
+    dense fold under WAND, gridmix, the direct tier and phrase keys."""
+    _js, ps = scale_searchers
+    assert ps._dense_layout("body").terms
+    _jprep, pprep = _hold(SCALE_QUERIES, scale_searchers, scale[1], BM25(), True)
+    tiers = {c[0] for c in pprep.calls}
+    assert {"wand", "aux", "gridmix", "direct"} <= tiers, tiers
+
+
+def test_uniform_layout_matches_jax(scale_searchers, searchers):
+    """``UniformDenseLayout`` equals the JAX package's field by field, its
+    pools and bounds byte for byte, and so does every shard's view."""
+    for js, ps in (scale_searchers, searchers):
+        jl, pl = js._dense_layout("body"), ps._dense_layout("body")
+        for name in ("fname", "terms", "stride", "cls", "start", "rows_c", "pools_np", "bmaxf_np"):
+            _same(getattr(pl, name), getattr(jl, name), name)
+        for si in range(len(ps.segments)):
+            jc, pc = jl.shard_cache(si), pl.shard_cache(si)
+            for f in dataclasses.fields(jc):
+                _same(getattr(pc, f.name), getattr(jc, f.name), f"shard {si}.{f.name}")
+    assert scale_searchers[1]._dense_layout("body").terms
+
+
+def test_scored_only_kmax_enforced(scale_searchers, scale):
+    """A scored-only prefix plan bounds k: ``run(k > kmax)`` raises, as in
+    the JAX package."""
+    js, ps = scale_searchers
+    flt = F.ByPrefix("body", "t0000", scored_terms_limit=1)
+    jprep = js.prepare_many([flt], BM25(), k_max=16)
+    pprep = ps.prepare_many([to_port(flt)], to_port(BM25()), k_max=16)
+    assert pprep._kmax == jprep._kmax and pprep._kmax is not None
+    with pytest.raises(ValueError, match="re-prepare"):
+        pprep.run(pprep._kmax + 1)
+    assert_topk_near([x.numpy() for x in pprep.run(10)[0]], [np.asarray(x) for x in jprep.run(10)[0]])
+
+
+def _keys_form(prep):
+    """Per group, whether its phrase leaves run in the keys form."""
+    return [any(kw.get("phrase_keys") is not None for t, q, _f, _a, kw in prep.calls if q == qis)
+            for qis, *_r in prep.groups]
+
+
+def test_phrase_keys_form(searchers, segs):
+    """Phrases plan in the keys form (``PhraseKeysSpec`` rows, closing the
+    single-segment runner's ``TypeError``) and run on the device: equal to
+    the JAX package's keys form and to ``HostQuery``."""
+    from iresearch_tpu_torch.exec.plan import PlanCompiler
+
+    _js, ps = searchers
+    phrases = [
+        F.ByPhrase("body", ["ant", "bee"]),
+        F.ByPhrase("body", ["ant", (2, "bee"), "cat"]),
+        F.Or(F.ByTerm("body", "owl"), F.ByPhrase("body", ["fox", "ant"])),
+        F.BySamePosition([("body", "ant"), ("body", "ant")]),
+    ]
+    jprep, pprep = _hold(phrases, searchers, segs.port, BM25(), False)
+    assert all(_keys_form(pprep))
+    assert all(st["phrase_static"] for _q, _a, st, _l in jprep._calls)
+    for flt in phrases:
+        pf, sc = to_port(flt), to_port(BM25())
+        comp = PlanCompiler(HostQuery(pf, ps._wrapped_segments(), sc), sc)
+        plan = comp.compile(pf, 0, device_phrase="keys")
+        assert plan.device_aux and isinstance(plan.device_aux[0][1], PhraseKeysSpec)
+
+
+def _segment(seed, n_docs, *, positions=True, pos_scale=1, vocab=50, field="body"):
+    """A small JAX segment of ``n_docs`` Zipf docs in ``field``
+    (``test_sharded_scale``'s law); without positions, or with every
+    position times ``pos_scale``."""
+    from iresearch_tpu.formats.postings import encode_field_postings
+    from iresearch_tpu.formats.spec import IndexFeatures
+    from iresearch_tpu.index.invert import invert_numpy
+    from iresearch_tpu.index.segment import SegmentData, SegmentReader
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(4, 12, size=n_docs)
+    total = int(lens.sum())
+    tids = np.minimum(rng.zipf(1.3, size=total) - 1, vocab - 1).astype(np.int64)
+    doc = np.repeat(np.arange(n_docs), lens)
+    starts = np.cumsum(lens) - lens
+    pos = ((np.arange(total, dtype=np.int64) - np.repeat(starts, lens)) * pos_scale).astype(np.uint32)
+    inv = invert_numpy(tids, doc, pos, vocab, n_docs)
+    present = np.flatnonzero(np.diff(inv.term_ptr) > 0)
+    terms = [b"t%05d" % t for t in present]
+    offs = np.zeros(len(terms) + 1, np.uint64)
+    offs[1:] = np.cumsum([len(t) for t in terms])
+    tp = np.concatenate([inv.term_ptr[present], [inv.term_ptr[-1]]])
+    feats = IndexFeatures.FREQ | (IndexFeatures.POS if positions else 0)
+    fp = encode_field_postings(
+        inv.e_doc, inv.e_freq, tp, b"".join(terms), offs, inv.norms,
+        inv.pos_flat if positions else None, feats,
+    )
+    return SegmentReader(f"k{seed}", SegmentData(n_docs, {field: fp}, {}))
+
+
+@pytest.mark.parametrize("fall", ["structure", "caplog"])
+def test_phrase_keys_falls_to_host_aux(fall):
+    """The keys form's two falls to host aux: a segment whose field has no
+    positions gives the query a shard-variant structure, and positions so
+    large that ``nd_pad << caplog`` reaches 2^31 leave no i32 key room.
+    Both packages fall alike and give the same results."""
+    import jax
+
+    from iresearch_tpu.parallel import ShardedSearcher as JaxSearcher
+    from iresearch_tpu.parallel import make_mesh as jax_mesh
+
+    if fall == "structure":
+        jsegs = [_segment(1, 200), _segment(2, 150, positions=False)]
+    else:
+        jsegs = [_segment(1, 200, pos_scale=1 << 22), _segment(2, 150)]
+    psegs = [carry(sr) for sr in jsegs]
+    phrases = [F.ByPhrase("body", ["t00000", "t00001"]),
+               F.Or(F.ByTerm("body", "t00004"), F.ByPhrase("body", ["t00001", "t00000"]))]
+    pair = (JaxSearcher(jsegs, jax_mesh(jax.devices()[:2])), ShardedSearcher(psegs, device="cpu"))
+    jprep, pprep = _hold(phrases, pair, psegs, BM25(), False)
+    assert not any(st["phrase_static"] for _q, _a, st, _l in jprep._calls)
+    assert not any(_keys_form(pprep)) and {m for _q, m, _w, _c in pprep.groups} == {"dense"}
+    assert all(kw["aux_rows"] and not any(dev for dev, _j in kw["aux_rows"])
+               for _t, _q, _f, _a, kw in pprep.calls)
+
+
+def test_segment_without_the_field_matches_jax():
+    """A segment that lacks the queried field holds no doc of it: its
+    groups decode zero pools of the groups' widths, and the results equal
+    the JAX package's, which stacks zero pools there."""
+    import jax
+
+    from iresearch_tpu.parallel import ShardedSearcher as JaxSearcher
+    from iresearch_tpu.parallel import make_mesh as jax_mesh
+
+    jsegs = [_segment(3, 200), _segment(4, 120, field="title"), _segment(5, 90)]
+    psegs = [carry(sr) for sr in jsegs]
+    pair = (JaxSearcher(jsegs, jax_mesh(jax.devices()[:1])), ShardedSearcher(psegs, device="cpu"))
+    filters = [F.ByTerm("body", "t00007"), F.Or(F.ByTerm("body", "t00003"), F.ByTerm("title", "t00030")),
+               F.And(F.ByTerm("body", "t00002"), F.ByTerm("body", "t00009"))]
+    _hold(filters, pair, psegs, BM25(), True)
+
+
+def test_grid_narrower_than_nd_pad():
+    """Where the largest segment's padded count (9,216 for 9,000 docs) is
+    not the power of two every segment runs at (16,384), a dense span's
+    lanes past the grid hold freq 0 (``exec/executor.py:dense_contrib``).
+    The JAX body needs the two equal (it reshapes the span to nd), so the
+    port is held against its own ``HostQuery``."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.index.segment import SegmentReader
+    from iresearch_tpu_torch.search.scorers import BM25 as PBM25
+
+    psegs = [SegmentReader("n0", bench_mix.build_segment_data(9_000)),
+             SegmentReader("n1", bench_mix.build_segment_data(700, bench_mix.SEED + 1))]
+    ps = ShardedSearcher(psegs, device="cpu")
+    lay = ps._dense_layout("body")
+    assert lay.terms and lay.stride * 128 == 9_216 and ps.nd_pad == 16_384
+    term_at = bench_mix._ranked(psegs[0])[0]
+    T = lambda r: to_port(F.ByTerm("body", term_at(r)))  # noqa: E731
+    filters = [T(0), T(3), to_port(F.Or(F.ByTerm("body", term_at(1)), F.ByTerm("body", term_at(2)))),
+               to_port(F.And(F.ByTerm("body", term_at(0)), F.ByTerm("body", term_at(400))))]
+    for wand in (False, True):
+        prep = ps.prepare_many(filters, PBM25(), wand=wand)
+        assert {c[0] for c in prep.calls} & {"fold", "wand"}
+        for flt, hits in zip(filters, prep.top_k(10)):
+            assert_topk_equiv(hits, HostQuery(flt, psegs, PBM25()).top_k(10))
+
+
+def test_searcher_needs_a_device_and_port_objects(segs):
+    """Without a ``device`` the searcher takes the card and raises where
+    there is none; it takes none of the JAX package's readers, filters or
+    scorers."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedSearcher(segs.port)
+    with pytest.raises(TypeError, match="SegmentReader"):
+        ShardedSearcher(segs.jax, device="cpu")
+    ps = ShardedSearcher(segs.port, device="cpu")
+    with pytest.raises(TypeError, match="Scorer"):
+        ps.prepare_many([to_port(QUERIES[0])], BM25())
+    with pytest.raises(TypeError, match="Filter"):
+        ps.prepare_many([QUERIES[0]], to_port(BM25()))
+
+
+_RANK = r"""
+import pickle, sys
+import torch.distributed as dist
+from iresearch_tpu_torch.index.segment import carry_segment
+from iresearch_tpu_torch.parallel import ShardedSearcher
+
+rank, port, src, dst = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+blobs, filters, scorer = pickle.load(open(src, "rb"))
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2)
+segs = [carry_segment(n, b, m) for n, b, m in blobs]
+s = ShardedSearcher(segs, device="cpu")
+assert (s.D, s.per_shard, s.local) == (2, 3, list(range(3 * rank, 3 * rank + 3)))
+out = [(v.numpy(), d.numpy()) for v, d in s.prepare_many(filters, scorer, wand=True).run(10)]
+if rank == 0:
+    pickle.dump(out, open(dst, "wb"))
+dist.destroy_process_group()
+"""
+
+
+def test_two_processes_gloo_match_jax(segs, tmp_path):
+    """Six segments over two processes of a ``gloo`` group (``per_shard``
+    3, candidates joined by ``all_gather``) against the JAX package on a
+    two-device mesh (``per_shard`` 3)."""
+    import jax
+
+    from iresearch_tpu.formats.segment_io import write_segment
+    from iresearch_tpu.parallel import ShardedSearcher as JaxSearcher
+    from iresearch_tpu.parallel import make_mesh as jax_mesh
+
+    jsegs = segs.jax[:6]
+    filters = WAND_QUERIES[:4]
+    src, dst = tmp_path / "in.pkl", tmp_path / "out.pkl"
+    blobs = [(sr.name, write_segment(sr.data), np.flatnonzero(~sr.alive)) for sr in jsegs]
+    with open(src, "wb") as f:
+        pickle.dump((blobs, [to_port(x) for x in filters], to_port(BM25())), f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r), str(port), str(src), str(dst)],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), [e.decode()[-2000:] for e in errs]
+    with open(dst, "rb") as f:
+        got = pickle.load(f)
+    js = JaxSearcher(jsegs, jax_mesh(jax.devices()[:2]))
+    assert js.per_shard == 3
+    want = js.prepare_many(filters, BM25(), wand=True).run(10)
+    for (gv, gd), (wv, wd) in zip(got, want):
+        assert_topk_near((gv, gd), (np.asarray(wv), np.asarray(wd)))

@@ -196,6 +196,20 @@ assert breadth[0].plan(0).device_aux  # Phrase, on the device by default
 assert all(q.execute_segment_async(0, 10)[0].shape == (10,) for q in breadth)
 print("new tiers", [c[0] for c in prep.calls])
 
+# the sharded executor over two segments, a phrase among its queries in the
+# keys form, and the store and utils copies
+import iresearch_tpu_torch.store.codecs, iresearch_tpu_torch.store.directory  # noqa: E401
+import iresearch_tpu_torch.utils.log, iresearch_tpu_torch.utils.pools  # noqa: E401
+import iresearch_tpu_torch.utils.resource, iresearch_tpu_torch.utils.timer  # noqa: E401
+from iresearch_tpu_torch.parallel import ShardedSearcher
+
+sr2 = SegmentReader("tiny2", bench_mix.build_segment_data(2000, bench_mix.SEED + 1))
+flts = [f for _c, f in mix[::40]] + [bench_mix.breadth_tasks(sr)[0][1]]
+sp = ShardedSearcher([sr, sr2], device="cpu").prepare_many(flts, BM25(), wand=True, k_max=10)
+assert any(kw.get("phrase_keys") for _t, _q, _f, _a, kw in sp.calls)
+assert all(v.shape == (10,) for v, _d in sp.run(10))
+print("sharded tiers", sorted({c[0] for c in sp.calls}))
+
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "iresearch_tpu"))
 assert loaded == sorted(BLOCKED), loaded[:8]
 print("imports ok")
@@ -214,11 +228,13 @@ def _run_slice(blocked):
     )
     assert r.returncode == 0, r.stderr[-3000:]
     assert "tiers" in r.stdout and "new tiers" in r.stdout and "imports ok" in r.stdout
+    assert "sharded tiers" in r.stdout
 
 
 def test_port_leaves_installed_jax_unimported():
     """Where jax and the JAX package are installed, a slice of the mix, the
-    breadth categories and the tier batch leaves both unimported: no
+    breadth categories, the tier batch and a sharded batch (with the store
+    and utils copies imported) leaves both unimported: no
     ``jax``, no ``iresearch_tpu`` and no ``iresearch_tpu.*`` module."""
     _run_slice([])
 
