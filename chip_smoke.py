@@ -88,18 +88,39 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    oracle. Prints S, D, per_shard, nd_pad, the uniform dense layout's
    eligible terms, stride and device bytes, the tier and query count per
    group, the prepare seconds, QPS over one loop of 20 passes and
-   synchronised ms for one query through ``prepare``.
+   synchronised ms for one query through ``prepare``;
+13. ingest on the card: phase 10's second segment rebuilt as text (seed 43,
+   1,250,000 docs; doc ``d`` is ``b"t%06d"`` of its token ids joined by
+   spaces) goes in doc order, from one thread, through the port's
+   ``IndexWriter`` with its default options (``"auto"`` inverts each
+   flush on the card; ``segment_docs_max`` 2^20 gives flushes of
+   1,048,576 and 201,424 docs) and the ``segmentation`` analyzer, into a
+   ``MemoryDirectory``. ``commit()`` must publish two segments of those
+   sizes; ``consolidate(consolidate_count())`` then one segment whose
+   "body" field equals phase 10's segment array for array and whose file
+   equals its bytes; a remove of the df-rank-2000 term masks its docs.
+   The 400-query mix over the written index through
+   ``QueryBatch(mix, reader.segments).prepare_all(10).run()``: enqueued with
+   no synchronise, K1, K2 and K3's scored form must launch, every wrapper
+   call of the pass is held bit for bit against its plain version, the
+   result against the plain-torch run and 25 queries of the numpy oracle,
+   and no deleted doc is returned. Prints docs/s and tokens/s of the
+   inserts, each flush's seconds with its ``invert_device`` seconds, the
+   flushes' peak device memory, commit, consolidate and reopen seconds,
+   and the pass's QPS, device ops, idle share and launches.
 
 The port and this script import nothing of ``jax`` or of the JAX package
 ``iresearch_tpu``; the run fails if either was loaded.
 
 It prints one JSON line of per-kernel results (``launches`` counts the
 400-query pass of phase 6, the tier batch of phase 8, the first runs of
-phase 9's queries, the index pass of phase 10 and the sharded pass of
-phase 12, each read with the counts reset just before), then, as its last line, ``{"ok": true,
+phase 9's queries, the index pass of phase 10, the sharded pass of
+phase 12 and the pass over phase 13's written index, each read with the
+counts reset just before), then, as its last line, ``{"ok": true,
 "device": {...}}``. Any failure raises: the exit code is not 0 and the
 last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
-N`` runs a smaller corpus while debugging; ``--profile FILE`` adds a
+N`` runs a smaller corpus while debugging, ``--ingest-docs N`` a smaller
+phase 13; ``--profile FILE`` adds a
 torch.profiler breakdown with the kernels' in-pass device durations;
 ``--kernel-times`` stops after the kernels' checks and timings of phases
 5 and 8, and also runs from a copy of this script in an older tree of
@@ -662,7 +683,8 @@ def check_oracle(vals, docs, tasks, sr, scorer, k):
 def profile_passes(torch, run, path, kind, smi, calls=(), passes=5):
     """torch.profiler over ``passes`` synchronised passes of ``run()``:
     device time by kernel name (table to ``path``) and the device's busy
-    share of the wall time; then each group of ``calls`` between events."""
+    share of the wall time; then each group of ``calls`` between events.
+    Returns per pass: wall ms, device busy ms, idle share, device ops."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -697,8 +719,10 @@ def profile_passes(torch, run, path, kind, smi, calls=(), passes=5):
                   f"{by_name[name] / count[name] / 1e3:.5f} ms device per launch")
     from iresearch_tpu_torch.exec.batch import KERNELS
 
+    stats = dict(wall_ms=wall / passes * 1e3, busy_ms=busy / passes * 1e3,
+                 idle_share=1 - busy / wall, device_ops=len(kernels) / passes)
     if not calls:
-        return
+        return stats
     per_tier = Counter()
     for tier, qis, fn, a, kw in calls:
         t1 = time.perf_counter()
@@ -708,6 +732,7 @@ def profile_passes(torch, run, path, kind, smi, calls=(), passes=5):
         print(f"  group {tier:8s} Q={len(qis):3d}: {ms:.4f} ms between events "
               f"({wall_ms:.4f} ms wall per call incl. warm-up)")
     print(f"per tier, ms between events for the whole pass: {dict(per_tier)}")
+    return stats
 
 
 def profile_tiers(torch, prep, smi, runs=3):
@@ -1258,11 +1283,235 @@ def run_invert(torch, num_docs, seed, dev, smi):
           f"invert_numpy on the host, on {smi}")
 
 
+def same_field(got, want, what):
+    """Every array, pool and scalar of two ``FieldPostings`` equal."""
+    import dataclasses
+
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        seq = isinstance(b, (tuple, list))
+        if seq and len(a) != len(b):
+            raise AssertionError(f"{what} {f.name}: {len(a)} vs {len(b)} pools")
+        for i, (x, y) in enumerate(zip(a, b) if seq else [(a, b)]):
+            name = f"{what} {f.name}{f'[{i}]' if seq else ''}"
+            if isinstance(y, np.ndarray):
+                if x.dtype != y.dtype or x.shape != y.shape:
+                    raise AssertionError(f"{name}: {x.dtype}{x.shape} vs {y.dtype}{y.shape}")
+                np.testing.assert_array_equal(x, y, err_msg=name)
+            elif isinstance(y, (bytes, bytearray, memoryview)):
+                if bytes(x) != bytes(y):
+                    raise AssertionError(f"{name}: bytes differ")
+            elif x != y:
+                raise AssertionError(f"{name}: {x!r} vs {y!r}")
+
+
+def run_ingest(torch, num_docs, want, dev, smi):
+    """Phase 13, steps 1-4: the corpus as text through the port's
+    ``IndexWriter`` (default options: ``"auto"`` inverts on the card),
+    committed, consolidated and a delete applied; the consolidated "body"
+    field held against ``want`` (phase 10's segment of the same seed).
+    Returns the reader after the delete and the removed term."""
+    from contextlib import contextmanager
+
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.formats.segment_io import CURRENT_FORMAT, write_segment
+    from iresearch_tpu_torch.index.consolidate import consolidate_count
+    from iresearch_tpu_torch.index.reader import DirectoryReader
+    from iresearch_tpu_torch.index.writer import Field, IndexWriter, IndexWriterOptions
+    from iresearch_tpu_torch.search import filters as F
+    from iresearch_tpu_torch.store.directory import MemoryDirectory
+    from iresearch_tpu_torch.utils import timer
+
+    class FlushClock(timer.TimerRegistry):
+        """The writer's scoped timers, each call's seconds in order."""
+
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        @contextmanager
+        def scoped(self, name):
+            t = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.calls.append((name, time.perf_counter() - t))
+
+    t1 = time.perf_counter()
+    buf, starts, ends = bench_mix.corpus_text(num_docs, bench_mix.SEED + 1)
+    ntok = len(buf) // 8
+    print(f"ingest corpus: {num_docs} docs, {ntok} tokens, {len(buf)} bytes of text "
+          f"(seed {bench_mix.SEED + 1}) in {time.perf_counter() - t1:.3f} s")
+    opts = IndexWriterOptions()
+    if opts.invert_backend != "auto" or opts.format_version != CURRENT_FORMAT:
+        raise AssertionError(f"writer defaults {opts}")
+    d = MemoryDirectory()
+    w = IndexWriter(d, opts, device=dev)
+    clock = FlushClock()
+    saved, timer._registry = timer._registry, clock
+    try:
+        t1 = time.perf_counter()
+        for s, e in zip(starts.tolist(), ends.tolist()):
+            w.insert([Field("body", buf[s:e].decode(), analyzer="segmentation")])
+        insert_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        if not w.commit():
+            raise AssertionError("commit published nothing")
+        commit_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        timer._registry = saved
+    del buf
+    flush_s = [t for n, t in clock.calls if n == "writer.flush"]
+    invert_s = [t for n, t in clock.calls if n == "writer.invert"]
+    cap = opts.segment_docs_max
+    sizes = [cap] * (num_docs // cap) + ([num_docs % cap] if num_docs % cap else [])
+    if len(flush_s) != len(sizes) or len(invert_s) != len(sizes):
+        raise AssertionError(f"{len(flush_s)} flushes, {len(invert_s)} inversions, "
+                             f"expected {len(sizes)}")
+    print(f"ingest: {num_docs / insert_s:.1f} docs/s, {ntok / insert_s:.1f} tokens/s "
+          f"({insert_s:.3f} s of inserts from one thread, analyzer 'segmentation'); "
+          f"commit {commit_s:.3f} s on {smi}")
+    for i, (fs, inv) in enumerate(zip(flush_s, invert_s)):
+        print(f"  flush {i} ({sizes[i]} docs): {fs:.3f} s, of it invert_device {inv:.3f} s "
+              f"(upload and fetch included) and the rest (streams, term sort, encode, "
+              f"columns) {fs - inv:.3f} s, on {smi}")
+    print(f"  flushes' peak device memory: {peak} bytes allocated "
+          f"({peak - base} above the {base} bytes resident before the commit), on {smi}")
+
+    t1 = time.perf_counter()
+    r = DirectoryReader.open(d)
+    open_s = time.perf_counter() - t1
+    got = [(sr.num_docs, sr.live_docs_count) for sr in r.segments]
+    if got != [(n, n) for n in sizes]:
+        raise AssertionError(f"segments {got}, expected {sizes} live docs")
+    t1 = time.perf_counter()
+    if not w.consolidate(consolidate_count()):
+        raise AssertionError("consolidate merged nothing")
+    w.commit()
+    cons_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    r = DirectoryReader.open(d)
+    reopen_s = time.perf_counter() - t1
+    if [sr.num_docs for sr in r.segments] != [num_docs]:
+        raise AssertionError(f"consolidated segments {[sr.num_docs for sr in r.segments]}")
+    data = r.segments[0].data
+    if list(data.fields) != ["body"] or data.columns or data.num_docs != want.num_docs:
+        raise AssertionError(f"consolidated segment: {list(data.fields)}, {list(data.columns)}")
+    same_field(data.fields["body"], want.fields["body"], "consolidated body")
+    file_bytes = d.read(r.meta.segments[0].file)
+    if bytes(file_bytes) != bytes(write_segment(want)):
+        raise AssertionError("consolidated segment file differs from phase 10's segment")
+    print(f"open {open_s:.3f} s ({len(sizes)} segments {sizes}); consolidate {cons_s:.3f} s; "
+          f"reopen {reopen_s:.3f} s; the consolidated 'body' field equals phase 10's "
+          f"segment of seed {bench_mix.SEED + 1} array for array and its file "
+          f"({len(file_bytes)} bytes, {CURRENT_FORMAT}) byte for byte, on {smi}")
+
+    # the df-rank-2000 term: the mix's first LowTerm query
+    term = next(f.term for c, f in bench_mix.task_mix(r.segments[0]) if c == "LowTerm")
+    df = int(data.fields["body"].entries[r.segments[0].lookup_term("body", term), 0])
+    t1 = time.perf_counter()
+    w.remove(F.ByTerm("body", term))
+    w.commit()
+    delete_s = time.perf_counter() - t1
+    w.close()
+    r = DirectoryReader.open(d)
+    sr = r.segments[0]
+    ndead = sr.num_docs - sr.live_docs_count
+    if ndead != df or ndead == 0:
+        raise AssertionError(f"delete of {term!r}: {ndead} docs masked")
+    print(f"delete of {term!r} (df rank 2000): {ndead} docs masked, remove + commit "
+          f"{delete_s:.3f} s on {smi}")
+    return r, term
+
+
+def serve_ingested(torch, reader, term, scorer, k, dev, smi, kind):
+    """Phase 13, step 5: the 400-query mix over the written index through
+    ``prepare_all(k).run()``, held against plain, the oracle and, call by
+    call, the kernels' plain versions. Returns the pass's launches."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec.batch import QueryBatch
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.search import filters as F
+
+    srs = reader.segments
+    tasks = bench_mix.task_mix(srs[0])
+    filters = [f for _c, f in tasks]
+    mb = QueryBatch(filters, srs, scorer, wand=True, device=dev).prepare_all(k)
+    torch.cuda.synchronize()
+    for s, p in enumerate(mb.preps):
+        print(f"  ingested segment {s}: groups per tier {dict(Counter(c[0] for c in p.calls))}")
+    kb.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vals_t, docs_t = mb.run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    packed = torch.stack([vals_t.view(torch.int32), docs_t]).cpu().numpy()
+    launches = kb.launch_counts()
+    vals, docs = packed[0].view(np.float32), packed[1]
+    print(f"ingested index pass: enqueued with no synchronise; launches {launches}")
+    for name in ("dense_scan_rowmax", "dma_row_slices", "decode_score_rows"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched over the ingested index")
+    # every query has a hit but the removed term's (the first LowTerm query)
+    gone = {qi for qi, (_c, f) in enumerate(tasks) if f == F.ByTerm("body", term)}
+    hitless = set(np.flatnonzero(~np.isfinite(vals[:, 0])).tolist())
+    if vals.shape != (len(tasks), k) or not gone or hitless != gone:
+        raise AssertionError(f"ingested pass: shape {vals.shape}, queries without a hit "
+                             f"{sorted(hitless)}, of the removed term {sorted(gone)}")
+    checked = sum((check_calls(torch, p, f"ingested segment {s}")
+                   for s, p in enumerate(mb.preps)), Counter())
+    for name, n in launches.items():
+        if n > checked[name]:
+            raise AssertionError(f"kernel {name}: {n} launches in the pass, fewer calls checked")
+    pv, pd = (t.cpu().numpy() for t in mb.run(plain=True))
+    np.testing.assert_array_equal(docs, pd)
+    np.testing.assert_allclose(vals, pv, rtol=1e-5, atol=0.0)
+    print(f"ingested pass vs plain-torch run: {len(tasks)} queries match")
+    alive = np.concatenate([sr.alive for sr in srs])
+    seen = Counter()
+    for qi, (cat, flt) in enumerate(tasks):
+        fin = np.isfinite(vals[qi])
+        if not alive[docs[qi][fin]].all():
+            raise AssertionError(f"q{qi}: a deleted doc returned")
+        if seen[cat] < PER_CATEGORY_ORACLE:
+            seen[cat] += 1
+            wd, wv = oracle_topk_index(flt, srs, scorer, k)
+            assert_gate(vals[qi], docs[qi], wd, wv, f"ingested oracle q{qi} {cat}")
+    alone = QueryBatch([F.ByTerm("body", term)], srs, scorer, device=dev).prepare_all(k)
+    if np.isfinite(alone.run()[0].cpu().numpy()).any():
+        raise AssertionError(f"the removed term {term!r} still matches")
+    print(f"ingested oracle (HostQuery over the written index): {sum(seen.values())} queries "
+          f"{dict(seen)} pass the exactness gate; no deleted doc in any of the "
+          f"{len(tasks)} results; the removed term matches nothing (queries {sorted(gone)})")
+    mb.run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(PASSES):
+        mb.run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3 / PASSES
+    prof = profile_passes(torch, mb.run, os.path.join(REPO, ".bench_cache", "ingest_profile.txt"),
+                          kind, smi)
+    print(f"ingested index passes: {PASSES} x {len(tasks)} queries, {ms:.4f} ms/pass -> "
+          f"{len(tasks) / ms * 1e3:.1f} QPS; under the profiler {prof['device_ops']:.1f} device "
+          f"ops/pass, idle share {prof['idle_share']:.4f}; K1 {launches['dense_scan_rowmax']}, "
+          f"K2 {launches['dma_row_slices']}, K3 plain {launches['decode_rows']}, K3 scored "
+          f"{launches['decode_score_rows']} launches in the checked pass, on {kind} ({smi})")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=5_000_000)
     ap.add_argument("--profile", metavar="FILE",
                     help="also profile 5 batched passes; kernel table to FILE")
+    ap.add_argument("--ingest-docs", type=int, default=1_250_000,
+                    help="docs phase 13 writes (lower it only while debugging)")
     ap.add_argument("--kernel-times", action="store_true",
                     help="only hold the kernels against plain and time them "
                          "(phases 1-5 and the gather form of phase 8)")
@@ -1414,6 +1663,14 @@ def main() -> int:
     sharded_launches = run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind,
                                    args.profile, merged)
     phase("12 sharded", t0)
+
+    t0 = time.perf_counter()
+    # phase 10's segment of seed 43 when it has the same size, else built
+    want = (srs[1].data if seg_sizes[1] == args.ingest_docs
+            else bench_mix.load_or_build(args.ingest_docs, cache_dir, 1)[0])
+    ingested, removed = run_ingest(torch, args.ingest_docs, want, dev, smi)
+    ingest_launches = serve_ingested(torch, ingested, removed, scorer, k, dev, smi, kind)
+    phase("13 ingest", t0)
     if args.profile:
         profile_passes(torch, prep.run_grouped, args.profile, kind, smi, prep.calls)
         profile_tiers(torch, tier_prep, smi)
@@ -1428,7 +1685,7 @@ def main() -> int:
 
     counts = dict(launches_pass=launches, launches_tiers=tier_launches,
                   launches_phrase=phrase_launches, launches_index=index_launches,
-                  launches_sharded=sharded_launches)
+                  launches_sharded=sharded_launches, launches_ingest=ingest_launches)
     for name in kb.KERNELS:
         if sum(c[name] for c in counts.values()) <= 0:
             raise AssertionError(f"kernel {name} never launched on a main path")

@@ -1,11 +1,13 @@
 """iresearch_tpu_torch — the PyTorch + CUDA port of iresearch_tpu.
 
-The port runs the search engine's query path on an NVIDIA H100: the
-batched BM25 top-k path (``exec.batch.QueryBatch``) and the single-query
-executor (``exec.executor.DeviceQuery``, ``search_device``). It carries
-its own copy of every host layer it needs (``formats``, ``index`` reader,
-``search`` filters/expansion/oracle/scorers, the ``exec`` planner and
-plan cache, the ``native`` loader of the shared C++ library in
+The port runs the search engine on an NVIDIA H100: ingest (the
+``analysis`` analyzers and ``index.writer.IndexWriter``, whose flushes
+invert on the card), the batched BM25 top-k path (``exec.batch.QueryBatch``)
+and the single-query executor (``exec.executor.DeviceQuery``,
+``search_device``). It carries its own copy of every host layer it needs
+(``analysis``, ``formats``, the ``index`` reader, writer, merge and
+consolidation, ``search`` filters/expansion/oracle/scorers, the ``exec``
+planner and plan cache, the ``native`` loader of the shared C++ library in
 ``native/``), each under the JAX package module's path and name, and
 replaces everything that touched a device: segment residency, the
 executor tiers and the three Pallas kernels, which are hand-written CUDA

@@ -1,16 +1,21 @@
-"""Multi-precision numeric term ranges (``iresearch_tpu/analysis/numeric.py``).
+"""Multi-precision numeric terms (``iresearch_tpu/analysis/numeric.py``).
 
-The query half of the JAX package's numeric trie, copied: a numeric range
-decomposes into a few term ranges across precision levels. Term layout:
+A copy of the JAX package's numeric trie (reference:
+core/analysis/token_streams.hpp:115-240, numeric_token_stream with
+PRECISION_STEP_DEF=16, and core/search/granular_range_filter.cpp): a
+numeric value is indexed as one term per granularity level, and a numeric
+range decomposes into a few term ranges across levels. Term layout:
 ``bytes([shift]) + 8-byte big-endian of (sortable_u64(v) >> shift)``, so
-terms at one level sort by value and levels are disjoint prefixes. The
-analyzer that writes those terms stays in the JAX package.
+terms at one level sort by value and levels are disjoint prefixes.
 """
 
 from __future__ import annotations
 
 import struct
 from typing import List, Optional, Tuple, Union
+
+from iresearch_tpu_torch.analysis.token import Token
+from iresearch_tpu_torch.analysis.analyzers import Analyzer, register
 
 PRECISION_STEP_DEF = 16
 BITS = 64
@@ -27,6 +32,15 @@ def sortable_u64(value: Union[int, float]) -> int:
     if not -(1 << 63) <= v < (1 << 63):
         raise ValueError("int out of int64 range")
     return (v ^ (1 << 63)) & 0xFFFFFFFFFFFFFFFF
+
+
+def level_term(u64: int, shift: int) -> bytes:
+    return bytes([shift]) + struct.pack(">Q", (u64 >> shift) << shift)
+
+
+def numeric_terms(value: Union[int, float], step: int = PRECISION_STEP_DEF) -> List[bytes]:
+    u = sortable_u64(value)
+    return [level_term(u, s) for s in range(0, BITS, step)]
 
 
 def split_granular_range(
@@ -96,3 +110,25 @@ def granular_term_ranges(
             )
         )
     return out
+
+
+class NumericAnalyzer(Analyzer):
+    """Emits one term per granularity level for a numeric value.
+
+    Higher-level terms carry position increment 0 in the reference; here
+    all terms share position 0 of the field.
+    """
+
+    name = "numeric"
+
+    def __init__(self, step: int = PRECISION_STEP_DEF) -> None:
+        self.step = step
+
+    def tokenize(self, text) -> List[Token]:
+        value = text
+        if isinstance(value, str):
+            value = float(value) if ("." in value or "e" in value.lower()) else int(value)
+        return [Token(term=t, position=0) for t in numeric_terms(value, self.step)]
+
+
+register("numeric", lambda a: NumericAnalyzer(step=int(a.get("step", PRECISION_STEP_DEF))))

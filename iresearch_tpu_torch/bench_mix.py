@@ -58,6 +58,19 @@ def token_stream(num_docs: int, seed: int = SEED):
     return tids, doc_of_tok, pos_of_tok
 
 
+def corpus_text(num_docs: int, seed: int = SEED):
+    """The corpus as text, for an analyzer and the writer: doc ``d`` is the
+    words ``b"t%06d"`` of its token ids joined by spaces (the term
+    spelling of ``build_segment_data``). Returns (buffer, starts, ends):
+    doc ``d`` is ``buffer[starts[d]:ends[d]]``. Built as one buffer of
+    8-byte records ``"t%06d "`` indexed by the token ids."""
+    lens, tids = build_corpus(num_docs, seed)
+    rec = np.frombuffer(b"".join(b"t%06d " % t for t in range(VOCAB)), np.uint8)
+    buf = rec.reshape(VOCAB, 8)[tids].tobytes()
+    ends = np.cumsum(lens) * 8
+    return buf, ends - lens * 8, ends - 1
+
+
 def build_segment_data(num_docs: int, seed: int = SEED):
     """One "body" field segment over the corpus (``bench.py:138-163``)."""
     from iresearch_tpu_torch.formats.postings import encode_field_postings

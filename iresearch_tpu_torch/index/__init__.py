@@ -1,1 +1,3 @@
-"""The port's segment reader (a copy of the JAX package's) and its residency on a torch device."""
+"""The port's index: the segment reader and its residency on a torch device,
+and the lifecycle (writer, reader, merge, consolidation), copies of the JAX
+package's."""

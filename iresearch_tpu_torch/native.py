@@ -1,11 +1,12 @@
 """ctypes loader for the native host library (native/iresearch_native.cpp).
 
-A copy of ``iresearch_tpu/native.py`` cut to what the port's host layers
-call: the fuzzy-expansion Levenshtein and DFA routines, the postings
-scatter-pack and the dense-grid builder. ``native/`` is the C++ library
-both packages share; it is built on first use with ``make -C native``
-when a compiler is available (the ``.so`` is not committed), and every
-caller keeps a pure-Python fallback for when it is not.
+A copy of ``iresearch_tpu/native.py``: the write-path tokenizer and term
+dictionary, the fuzzy-expansion Levenshtein and DFA routines, the postings
+scatter-pack, the dense-grid builder, the consolidation-merge kernels and
+checksums. ``native/`` is the C++ library both packages share; it is built
+on first use with ``make -C native`` when a compiler is available (the
+``.so`` is not committed), and every caller keeps a pure-Python fallback
+for when it is not.
 """
 
 from __future__ import annotations
@@ -54,6 +55,15 @@ def load() -> Optional[ctypes.CDLL]:
             lib = ctypes.CDLL(_LIB_PATH)
         except OSError:
             return None
+        lib.irs_tokenize_ascii.restype = ctypes.c_int32
+        lib.irs_tokenize_ascii.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+        ]
         lib.irs_levenshtein_batch.restype = None
         lib.irs_levenshtein_batch.argtypes = [
             np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
@@ -114,6 +124,62 @@ def load() -> Optional[ctypes.CDLL]:
             ]
         except AttributeError:
             lib.irs_lev_dfa_build = None
+        lib.irs_crc32c.restype = ctypes.c_uint32
+        lib.irs_crc32c.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_int64,
+            ctypes.c_uint32,
+        ]
+        lib.irs_termdict_new.restype = ctypes.c_void_p
+        lib.irs_termdict_free.argtypes = [ctypes.c_void_p]
+        lib.irs_termdict_size.restype = ctypes.c_int32
+        lib.irs_termdict_size.argtypes = [ctypes.c_void_p]
+        lib.irs_termdict_add.restype = ctypes.c_int32
+        lib.irs_termdict_add.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_int32,
+        ]
+        lib.irs_termdict_bytes.restype = ctypes.c_int64
+        lib.irs_termdict_bytes.argtypes = [ctypes.c_void_p]
+        try:
+            lib.irs_termdict_merge.restype = ctypes.c_int32
+            lib.irs_termdict_merge.argtypes = [
+                ctypes.c_void_p,
+                ctypes.c_void_p,
+                np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ]
+        except AttributeError:
+            pass
+        lib.irs_termdict_dump.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ]
+        lib.irs_tokenize_to_tids.restype = ctypes.c_int32
+        lib.irs_tokenize_to_tids.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+        ]
+        # UTF-8 tokenizer (older .so builds lack it: rebuild, else skip)
+        try:
+            lib.irs_tokenize_to_tids_utf8.restype = ctypes.c_int32
+            lib.irs_tokenize_to_tids_utf8.argtypes = [
+                ctypes.c_void_p,
+                ctypes.c_char_p,
+                ctypes.c_int32,
+                ctypes.c_int32,
+                ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.c_int32,
+            ]
+        except AttributeError:
+            lib.irs_tokenize_to_tids_utf8 = None
         # scatter-pack encoder kernel (older .so builds lack it)
         try:
             lib.irs_scatter_pack.restype = None
@@ -127,6 +193,57 @@ def load() -> Optional[ctypes.CDLL]:
             ]
         except AttributeError:
             lib.irs_scatter_pack = None
+        # consolidation-merge kernels (older .so builds lack them)
+        try:
+            lib.irs_merge_decode.restype = ctypes.c_int64
+            lib.irs_merge_decode.argtypes = [
+                np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+                ctypes.c_int64,
+                ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_void_p),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+            ]
+            lib.irs_merge_gather_pos.restype = None
+            lib.irs_merge_gather_pos.argtypes = [
+                np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+                ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_void_p),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                ctypes.c_int64,
+                np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+            ]
+            lib.irs_copy_runs_u32.restype = None
+            lib.irs_copy_runs_u32.argtypes = [
+                np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+                ctypes.c_int64,
+                np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS"),
+            ]
+            lib.irs_copy_runs_bytes.restype = None
+            lib.irs_copy_runs_bytes.argtypes = [
+                np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+                ctypes.c_int64,
+                np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+            ]
+        except AttributeError:
+            lib.irs_merge_decode = None
         # dense-grid cache builder (older .so builds lack it)
         try:
             lib.irs_dense_build.restype = None
@@ -155,6 +272,34 @@ def load() -> Optional[ctypes.CDLL]:
             lib.irs_dense_build = None
         _lib = lib
         return _lib
+
+
+_CASE = {"lower": 0, "none": 1, "upper": 2}
+_BREAK = {"alpha": 0, "all": 1, "graphic": 2}
+
+
+def tokenize_ascii(
+    text: str, case: str, word_break: str
+) -> Optional[Tuple[bytes, np.ndarray]]:
+    """(case-folded bytes, int32 [n,2] start/end offsets), or None when the
+    native path is unavailable or the text is not pure ASCII."""
+    lib = load()
+    if lib is None:
+        return None
+    try:
+        raw = text.encode("ascii")
+    except UnicodeEncodeError:
+        return None
+    buf = ctypes.create_string_buffer(raw, len(raw))
+    cap = max(8, len(raw) // 2 + 1)
+    out = (ctypes.c_int32 * (2 * cap))()
+    n = lib.irs_tokenize_ascii(
+        buf, len(raw), _CASE[case], _BREAK[word_break], out, cap
+    )
+    if n < 0:
+        return None
+    spans = np.frombuffer(out, dtype=np.int32)[: 2 * n].reshape(n, 2).copy()
+    return buf.raw[: len(raw)], spans
 
 
 def levenshtein_batch(
@@ -389,3 +534,221 @@ def dense_build(
         f_mdl,
     )
     return packed, bmaxf, dl_min, f_c, dl_c, f_mdl
+
+
+def merge_decode(
+    entries: np.ndarray,  # u32 [T, ncols]
+    doc_words,  # 6 per-class u32 pools
+    base,  # 6 per-class u32 base arrays
+    freq_words,  # 6 per-class u32 pools
+    dmap: np.ndarray,  # i64 [num_docs] new doc or -1
+    tid_remap: np.ndarray,  # i64 [T] merged term ids
+    e_cap: int,  # sum(df) upper bound for the outputs
+) -> Optional[tuple]:
+    """One-pass decode+remap of a segment field (merge hot path).
+
+    Returns (tid i32, doc u32, freq u32, orig_tid i32, pos_off i64) for
+    the kept entries — pos_off is the global flat position rank (cumsum
+    of freq over ALL entries) indexing positions_flat()/OFFS/PAY — or
+    None when the native library is unavailable."""
+    lib = load()
+    if lib is None or getattr(lib, "irs_merge_decode", None) is None:
+        return None
+    T = entries.shape[0]
+    cap = max(1, e_cap)
+    out_tid = np.empty(cap, np.int32)
+    out_doc = np.empty(cap, np.uint32)
+    out_freq = np.empty(cap, np.uint32)
+    out_orig = np.empty(cap, np.int32)
+    out_posoff = np.empty(cap, np.int64)
+    n = lib.irs_merge_decode(
+        np.ascontiguousarray(entries, np.uint32),
+        T,
+        entries.shape[1],
+        _pool_ptrs(doc_words),
+        _pool_ptrs(base),
+        _pool_ptrs(freq_words),
+        np.ascontiguousarray(dmap, np.int64),
+        np.ascontiguousarray(tid_remap, np.int64),
+        out_tid,
+        out_doc,
+        out_freq,
+        out_orig,
+        out_posoff,
+    )
+    return (
+        out_tid[:n],
+        out_doc[:n],
+        out_freq[:n],
+        out_orig[:n],
+        out_posoff[:n],
+    )
+
+
+def merge_gather_pos(
+    entries: np.ndarray,  # u32 [T, ncols] (PCLS/PSTART columns)
+    pos_words,  # 6 per-class u32 position pools
+    tid_pos_base: np.ndarray,  # i64 [T] flat base rank per term
+    orig_tid: np.ndarray,  # i32 [E]
+    src_off: np.ndarray,  # i64 [E] global flat source rank
+    freq: np.ndarray,  # u32 [E]
+    dst_off: np.ndarray,  # i64 [E] merged flat offsets
+    out_pos: np.ndarray,  # u32 [P] output buffer
+) -> bool:
+    lib = load()
+    if lib is None or getattr(lib, "irs_merge_decode", None) is None:
+        return False
+    lib.irs_merge_gather_pos(
+        np.ascontiguousarray(entries, np.uint32),
+        entries.shape[1],
+        _pool_ptrs(pos_words),
+        np.ascontiguousarray(tid_pos_base, np.int64),
+        np.ascontiguousarray(orig_tid, np.int32),
+        np.ascontiguousarray(src_off, np.int64),
+        np.ascontiguousarray(freq, np.uint32),
+        np.ascontiguousarray(dst_off, np.int64),
+        len(orig_tid),
+        out_pos,
+    )
+    return True
+
+
+def copy_runs_u32(
+    src: np.ndarray, src_off: np.ndarray, dst_off: np.ndarray,
+    lens: np.ndarray, out: np.ndarray,
+) -> bool:
+    lib = load()
+    if lib is None or getattr(lib, "irs_merge_decode", None) is None:
+        return False
+    lib.irs_copy_runs_u32(
+        np.ascontiguousarray(src, np.uint32),
+        np.ascontiguousarray(src_off, np.int64),
+        np.ascontiguousarray(dst_off, np.int64),
+        np.ascontiguousarray(lens, np.uint32),
+        len(src_off),
+        out,
+    )
+    return True
+
+
+def copy_runs_bytes(
+    src: np.ndarray, src_off: np.ndarray, dst_off: np.ndarray,
+    lens: np.ndarray, out: np.ndarray,
+) -> bool:
+    lib = load()
+    if lib is None or getattr(lib, "irs_merge_decode", None) is None:
+        return False
+    lib.irs_copy_runs_bytes(
+        np.ascontiguousarray(src, np.uint8),
+        np.ascontiguousarray(src_off, np.int64),
+        np.ascontiguousarray(dst_off, np.int64),
+        np.ascontiguousarray(lens, np.int64),
+        len(src_off),
+        out,
+    )
+    return True
+
+
+def crc32c(data: bytes, seed: int = 0) -> Optional[int]:
+    lib = load()
+    if lib is None:
+        return None
+    return int(lib.irs_crc32c(data, len(data), seed))
+
+
+class TermDict:
+    """Term bytes -> dense id map; native C++ when available.
+
+    The write-path twin of the reference's in-RAM postings hash
+    (core/index/postings.hpp:78-125). ``tokenize_to_tids`` runs the whole
+    segmentation+lookup inner loop natively for ASCII text.
+    """
+
+    def __init__(self) -> None:
+        self._lib = load()
+        self._h = self._lib.irs_termdict_new() if self._lib is not None else None
+        self._py: dict = {}
+        self._scratch = (ctypes.c_int32 * 4096)()
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None and self._lib is not None:
+            self._lib.irs_termdict_free(self._h)
+            self._h = None
+
+    def __len__(self) -> int:
+        if self._h is not None:
+            return int(self._lib.irs_termdict_size(self._h))
+        return len(self._py)
+
+    def add(self, term: bytes) -> int:
+        if self._h is not None:
+            return int(self._lib.irs_termdict_add(self._h, term, len(term)))
+        tid = self._py.get(term)
+        if tid is None:
+            tid = len(self._py)
+            self._py[term] = tid
+        return tid
+
+    def tokenize_to_tids(
+        self, text: str, case: str, word_break: str
+    ) -> Optional[np.ndarray]:
+        """Token term-ids (i32) for arbitrary Unicode text (UTF-8 C++
+        tokenizer, table-matched to the Python analyzers), or None ->
+        caller falls back to per-token add() (native lib missing,
+        malformed input, or case-complex code points)."""
+        if self._h is None:
+            return None
+        fn = getattr(self._lib, "irs_tokenize_to_tids_utf8", None)
+        raw = text.encode("utf-8")
+        if fn is None:  # old .so: ASCII only
+            try:
+                text.encode("ascii")
+            except UnicodeEncodeError:
+                return None
+            fn = self._lib.irs_tokenize_to_tids
+            buf = ctypes.create_string_buffer(raw, len(raw))
+        else:
+            buf = raw
+        cap = max(8, len(raw) // 2 + 1)
+        if cap > len(self._scratch):
+            self._scratch = (ctypes.c_int32 * (2 * cap))()
+        n = fn(
+            self._h, buf, len(raw), _CASE[case], _BREAK[word_break],
+            self._scratch, cap,
+        )
+        if n < 0:
+            return None
+        return np.frombuffer(self._scratch, dtype=np.int32, count=n).copy()
+
+    def merge_from(self, other: "TermDict") -> np.ndarray:
+        """Add every term of ``other`` to this dict; returns the int64
+        other_id -> this_id map (ONE native call — the register-time
+        remap of a transaction's private term dictionary)."""
+        n = len(other)
+        out = np.empty(max(1, n), np.int32)
+        if (
+            self._h is not None
+            and other._h is not None
+            and getattr(self._lib, "irs_termdict_merge", None) is not None
+        ):
+            self._lib.irs_termdict_merge(self._h, other._h, out)
+            return out[:n].astype(np.int64)
+        terms = other.terms()
+        return np.fromiter(
+            (self.add(t) for t in terms), np.int64, count=len(terms)
+        )
+
+    def terms(self) -> list:
+        """All terms in id order."""
+        if self._h is not None:
+            size = int(self._lib.irs_termdict_size(self._h))
+            nbytes = int(self._lib.irs_termdict_bytes(self._h))
+            blob = ctypes.create_string_buffer(max(1, nbytes))
+            offsets = np.empty(size + 1, np.int64)
+            self._lib.irs_termdict_dump(self._h, blob, offsets)
+            raw = blob.raw[:nbytes]
+            return [raw[offsets[i] : offsets[i + 1]] for i in range(size)]
+        out = [b""] * len(self._py)
+        for t, i in self._py.items():
+            out[i] = t
+        return out

@@ -1,9 +1,9 @@
 """Host (numpy) query evaluator — the exact-semantics reference engine.
 
-A copy of ``iresearch_tpu/search/host_eval.py`` (without the writer's
-``match_docs`` and the ``search`` convenience): the oracle the port's
-executor is tested against, and the prepare step (expansion, stats, host
-aux leaves) it plans from. Semantics follow the reference:
+A copy of ``iresearch_tpu/search/host_eval.py``: the oracle the port's
+executor is tested against, the prepare step (expansion, stats, host aux
+leaves) it plans from, and the evaluator the writer uses for
+Remove-by-filter (``match_docs``). Semantics follow the reference:
 
 * boolean algebra: And = conjunction with Not-extraction (exclusion),
   Or = min-match disjunction with Not-extraction
@@ -34,7 +34,7 @@ from iresearch_tpu_torch.search.expand import (
     expand_leaf,
     expand_phrase_part,
 )
-from iresearch_tpu_torch.search.scorers import BM25, Scorer, score_block
+from iresearch_tpu_torch.search.scorers import BM25, BoostScore, Scorer, score_block
 
 
 @dataclass
@@ -838,3 +838,17 @@ class HostQuery:
             m = ~np.isin(docs, nr.docs, assume_unique=True)
             docs, score = docs[m], score[m]
         return SparseResult(docs, score)
+
+
+def match_docs(flt: F.Filter, sr: SegmentReader) -> np.ndarray:
+    """Alive docs matching ``flt`` in one segment (writer delete path)."""
+    q = HostQuery(flt, [sr], BoostScore())
+    return np.flatnonzero(q.execute(0).match)
+
+
+def search(
+    reader, flt: F.Filter, scorer: Optional[Scorer] = None, k: int = 10
+) -> List[Tuple[int, float]]:
+    """Convenience: top-k (global_doc, score) over a DirectoryReader."""
+    q = HostQuery(flt, list(reader.segments), scorer)
+    return q.top_k(k)

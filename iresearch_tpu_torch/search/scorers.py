@@ -1,8 +1,8 @@
 """Scorers: the BM25, TFIDF and BoostScore descriptors and their torch twins.
 
-The descriptors, ``score_block`` (numpy) and ``max_score_blocks`` are a
-copy of ``iresearch_tpu/search/scorers.py``. Formulas (reference:
-core/search/bm25.cpp, tfidf.cpp, boost_scorer.hpp):
+The descriptors, ``score_block`` (numpy), ``max_score_blocks`` and the
+``get_scorer`` registry are a copy of ``iresearch_tpu/search/scorers.py``.
+Formulas (reference: core/search/bm25.cpp, tfidf.cpp, boost_scorer.hpp):
 
     BM25   idf = log1p((N - df + 0.5) / (df + 0.5)), weight = boost (k+1) idf
            score = weight * tf / (tf + k (1 - b + b dl / avgdl))
@@ -172,6 +172,22 @@ def max_score_blocks(scorer: Scorer, weight: float, max_freq, min_dl: float, avg
     if isinstance(scorer, BoostScore):
         return np.where(f > 0, np.float32(weight), np.float32(0.0))
     raise TypeError(f"unknown scorer {scorer!r}")
+
+
+_SCORERS = {
+    "bm25": lambda a: BM25(
+        k=float(a.get("k", 1.2)), b=float(a.get("b", 0.75))
+    ),
+    "tfidf": lambda a: TFIDF(with_norms=bool(a.get("withNorms", True))),
+    "boost": lambda a: BoostScore(),
+}
+
+
+def get_scorer(name: str, args: dict | None = None) -> Scorer:
+    """Named scorer registry (reference: scorers::get, scorers.cpp:92)."""
+    if name not in _SCORERS:
+        raise KeyError(f"unknown scorer: {name!r}")
+    return _SCORERS[name](args or {})
 
 
 def f32(x: float) -> float:

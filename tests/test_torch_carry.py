@@ -572,3 +572,176 @@ def test_utils_copies_match_jax(name):
     assert got == want
     if name == "metrics":
         assert got[2] is False
+
+
+# --- copies of the ingest path (analysis, index lifecycle, host functions) --
+
+
+def _arr(a):
+    a = np.asarray(a)
+    return str(a.dtype), a.shape, a.tobytes()
+
+
+def _mod(root, name):
+    import importlib
+
+    return importlib.import_module(f"{root}.{name}")
+
+
+def _small_index(root, sort=False):
+    """A three-segment index with deletes, stored values and feature
+    columns, written by package ``root``'s own writer."""
+    w, F, dirs = _mod(root, "index.writer"), _mod(root, "search.filters"), _mod(root, "store.directory")
+    d = dirs.MemoryDirectory()
+    rng = np.random.default_rng(3)
+    words = ["red", "green", "blue", "cyan", "black", "white", "gold", "plum"]
+    opts = w.IndexWriterOptions(invert_backend="numpy", segment_docs_max=40)
+    if sort:
+        opts.sort = w.SortSpec("id")
+    with w.IndexWriter(d, opts) as iw:
+        for i in range(100):
+            text = " ".join(words[j] for j in rng.integers(0, len(words), int(rng.integers(1, 9))))
+            iw.insert([w.Field("body", text, analyzer="segmentation", feature_columns=("norm",)),
+                       w.Field("id", "%03d" % (97 * i % 100), store=True)])
+            if i == 60:
+                iw.commit()
+        iw.remove(F.ByTerm("body", "gold"))
+        iw.commit()
+    return d
+
+
+def _analysis_run(root):
+    A = _mod(root, "analysis")
+    out = []
+    for name, args, text in [("text", {"locale": "de"}, "Die Katzen laufen schnell"),
+                             ("segmentation", {}, "Hello, Wörld! 北京大学"),
+                             ("ngram", {"min": 1, "max": 3}, "abcd"),
+                             ("numeric", {}, "12.5"),
+                             ("pipeline", {"pipeline": [{"type": "delimiter"},
+                                                        {"type": "norm"}]}, "A,b,C")]:
+        out.append([(t.term, t.position, t.start, t.end) for t in A.get(name, args).tokenize(text)])
+    return out
+
+
+def _native_run(root):
+    nat = _mod(root, "native")
+    td = nat.TermDict()
+    ids = [td.add(t) for t in (b"x", b"y", b"x", b"zz")]
+    tids = td.tokenize_to_tids("Hello hello WORLD x", "lower", "alpha")
+    other = nat.TermDict()
+    for t in (b"zz", b"new", b"x"):
+        other.add(t)
+    remap = td.merge_from(other)
+    ascii_ = nat.tokenize_ascii("Foo bar42 _baz", "upper", "all")
+    crc = nat.crc32c(b"iresearch", 7)
+    fp = _mod(root, "formats.segment_io").read_segment(
+        _small_index(root).read("_3.seg")).fields["body"]
+    dmap = np.arange(100, dtype=np.int64)[: len(fp.norms)] * 2 - 5
+    cap = int(fp.entries[:, 0].astype(np.int64).sum())
+    dec = nat.merge_decode(fp.entries, fp.doc_words, fp.base, fp.freq_words, dmap,
+                           np.arange(fp.entries.shape[0], dtype=np.int64)[::-1].copy(), cap)
+    u32 = np.arange(50, dtype=np.uint32)
+    out32 = np.zeros(12, np.uint32)
+    nat.copy_runs_u32(u32, np.array([3, 40], np.int64), np.array([0, 6], np.int64),
+                      np.array([6, 6], np.uint32), out32)
+    out8 = np.zeros(9, np.uint8)
+    nat.copy_runs_bytes(np.frombuffer(b"abcdefghijkl", np.uint8), np.array([1, 8], np.int64),
+                        np.array([0, 5], np.int64), np.array([5, 4], np.int64), out8)
+    return (ids, len(td), td.terms(), tids.tolist(), remap.tolist(),
+            None if ascii_ is None else (ascii_[0], ascii_[1].tolist()), crc,
+            [_arr(a) for a in dec], out32.tolist(), out8.tobytes())
+
+
+def _columnstore_run(root):
+    cs = _mod(root, "formats.columnstore")
+    out = []
+    for docs, vals, n in [([0, 1, 2], [b"a", b"bb", b""], 3), ([1, 4, 4, 7], [b"x", b"y", b"z", b""], 9),
+                          ([2, 5], [b"", b""], 6)]:
+        b = cs.ColumnBuilder("c")
+        for d, v in zip(docs, vals):
+            b.add(d, v)
+        col = b.build(n)
+        dmap = np.arange(n, dtype=np.int64)[::-1].copy()
+        dmap[1] = -1
+        parts = cs.column_parts(col, dmap)
+        back = cs.column_from_parts(*parts, n)
+        rem = cs.remap_column(col, dmap, n)
+        out.append([(c.kind, list(c.items())) for c in (col, back, rem)]
+                   + [_arr(parts[0]), _arr(parts[1]), parts[2]])
+    return out
+
+
+def _host_eval_run(root):
+    he, F, S = _mod(root, "search.host_eval"), _mod(root, "search.filters"), _mod(root, "search.scorers")
+    r = _mod(root, "index.reader").DirectoryReader.open(_small_index(root))
+    flt = F.Or(F.ByTerm("body", "red"), F.ByTerm("body", "plum"))
+    return ([he.match_docs(flt, sr).tolist() for sr in r.segments],
+            he.search(r, flt, S.BM25(), 7), he.search(r, F.ByTerm("body", "cyan"), None, 3))
+
+
+def _scorers_run(root):
+    S = _mod(root, "search.scorers")
+    out = [repr(S.get_scorer(n, a)) for n, a in
+           [("bm25", None), ("bm25", {"k": 2.0, "b": 0.5}), ("tfidf", {"withNorms": False}),
+            ("boost", {})]]
+    try:
+        S.get_scorer("nope")
+    except KeyError as e:
+        out.append(str(e))
+    return out
+
+
+def _features_run(root):
+    fe = _mod(root, "index.features")
+    norms = np.array([0, 3, 300, 70000, 1], np.uint32)
+    cols = fe.build_feature_columns("body", ["norm", "norm2"], norms, 5)
+    sr = _mod(root, "index.reader").DirectoryReader.open(_small_index(root)).segments[0]
+    return ([(k, c.kind, list(c.items())) for k, c in sorted(cols.items())],
+            [fe.read_feature(sr, "norm", "body", d) for d in range(5)],
+            fe.feature_column_name("norm2", "f"))
+
+
+def _consolidate_run(root):
+    co = _mod(root, "index.consolidate")
+    r = _mod(root, "index.reader").DirectoryReader.open(_small_index(root))
+    pols = [co.consolidate_count(), co.consolidate_count(5), co.consolidate_docs_live(0.01),
+            co.consolidate_docs_fill(0.99), co.consolidate_bytes(0.9),
+            co.consolidate_bytes_accum(0.9), co.consolidate_tier(), co.consolidate_tier(min_segments=2)]
+    return [list(p(r)) for p in pols]
+
+
+def _reader_run(root):
+    rd = _mod(root, "index.reader")
+    d = _small_index(root)
+    r = rd.DirectoryReader.open(d, rd.ReaderOptions(read_doc_masks=False))
+    m = rd.read_meta(d)
+    return (m.to_bytes(), sorted(m.referenced_files()), rd.find_last_generation(d),
+            r.live_docs_count, [sr.num_docs for sr in r], r.field_stats("body"),
+            r.term_stats("body", b"red"), r.stored(70, "id"),
+            _arr(rd._read_mask(d, m.segments[0])) if m.segments[0].del_file else None)
+
+
+def _merge_run(root):
+    mg, io = _mod(root, "index.merge"), _mod(root, "formats.segment_io")
+    r = _mod(root, "index.reader").DirectoryReader.open(_small_index(root))
+    sort = _mod(root, "index.writer").SortSpec("id", descending=True)
+    merged, maps = mg.merge_segments(r.segments, sort=sort, return_doc_maps=True)
+    return io.write_segment(mg.merge_segments(r.segments)), io.write_segment(merged), \
+        [m.tolist() for m in maps]
+
+
+def _writer_run(root):
+    d = _small_index(root, sort=True)
+    return sorted((n, bytes(d.read(n))) for n in d.list())
+
+
+@pytest.mark.parametrize("name", ["analysis", "native", "columnstore", "host_eval", "scorers",
+                                  "features", "consolidate", "reader", "merge", "writer"])
+def test_ingest_copies_match_jax(name):
+    """The port's copies of ``analysis``, ``index/{reader,merge,
+    consolidate,features,writer}.py`` and the functions added to
+    ``native.py``, ``formats/columnstore.py``, ``search/host_eval.py`` and
+    ``search/scorers.py`` give the JAX package's results on the same
+    calls."""
+    run = globals()[f"_{name}_run"]
+    assert run("iresearch_tpu_torch") == run("iresearch_tpu")

@@ -210,6 +210,38 @@ assert any(kw.get("phrase_keys") for _t, _q, _f, _a, kw in sp.calls)
 assert all(v.shape == (10,) for v, _d in sp.run(10))
 print("sharded tiers", sorted({c[0] for c in sp.calls}))
 
+# ingest: analyzers, the writer (flushes inverted on the device), commit,
+# consolidation, a delete and the reader, then the index served
+from iresearch_tpu_torch import analysis
+from iresearch_tpu_torch.index.consolidate import consolidate_count
+from iresearch_tpu_torch.index.reader import DirectoryReader
+from iresearch_tpu_torch.index.writer import Field, IndexWriter, IndexWriterOptions
+from iresearch_tpu_torch.search import filters as F
+from iresearch_tpu_torch.store.directory import MemoryDirectory
+import iresearch_tpu_torch.utils.plugins  # noqa: F401
+
+d = MemoryDirectory()
+buf, starts, ends = bench_mix.corpus_text(300)
+with IndexWriter(d, IndexWriterOptions(segment_docs_max=128), device="cpu") as w:
+    for i, (s, e) in enumerate(zip(starts.tolist(), ends.tolist())):
+        w.insert([Field("body", buf[s:e].decode(), analyzer="segmentation"),
+                  Field("title", "Füße laufen %d" % i, analyzer="text"),
+                  Field("n", i, analyzer="numeric", store=True)])
+    w.commit()
+    assert w.consolidate(consolidate_count())
+    w.remove(F.ByTerm("title", analysis.get("text").terms("laufen")[0]))
+    w.commit()
+r = DirectoryReader.open(d)
+assert [sr.num_docs for sr in r.segments] == [300] and r.live_docs_count == 0
+w = IndexWriter(d, IndexWriterOptions(), device="cpu")
+w.insert([Field("body", "t000001 t000002", analyzer="segmentation")])
+w.commit()
+r = DirectoryReader.open(d)
+v, dd = QueryBatch([F.ByTerm("body", "t000001")], r.segments, BM25(),
+                   device="cpu").prepare_all(10).run()
+assert int(dd[0, 0]) == 300 and torch.isfinite(v[0, 0])
+print("ingest ok", sorted(analysis.registered()))
+
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "iresearch_tpu"))
 assert loaded == sorted(BLOCKED), loaded[:8]
 print("imports ok")
@@ -228,13 +260,15 @@ def _run_slice(blocked):
     )
     assert r.returncode == 0, r.stderr[-3000:]
     assert "tiers" in r.stdout and "new tiers" in r.stdout and "imports ok" in r.stdout
-    assert "sharded tiers" in r.stdout
+    assert "sharded tiers" in r.stdout and "ingest ok" in r.stdout
 
 
 def test_port_leaves_installed_jax_unimported():
     """Where jax and the JAX package are installed, a slice of the mix, the
-    breadth categories, the tier batch and a sharded batch (with the store
-    and utils copies imported) leaves both unimported: no
+    breadth categories, the tier batch, a sharded batch (with the store
+    and utils copies imported) and an index written, consolidated and
+    served through the port's analyzers, writer and reader leaves both
+    unimported: no
     ``jax``, no ``iresearch_tpu`` and no ``iresearch_tpu.*`` module."""
     _run_slice([])
 
