@@ -107,7 +107,35 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    and no deleted doc is returned. Prints docs/s and tokens/s of the
    inserts, each flush's seconds with its ``invert_device`` seconds, the
    flushes' peak device memory, commit, consolidate and reopen seconds,
-   and the pass's QPS, device ops, idle share and launches.
+   and the pass's QPS, device ops, idle share and launches;
+14. the CLI and pyresearch on the card: the first 262,144 docs of phase
+   13's text as a line-docs file, ``cli put --threads 4
+   --segment-docs-max 131072 --consolidate --invert auto`` into an
+   ``FSDirectory``, then ``cli search --topN 10 --max-tasks 5`` over a task
+   file of the 22 categories (``bench_mix.task_lines``) with ``--engine
+   device`` and ``--engine host``, all in-process through
+   ``cli.__main__.main``. Each device task's hits pass the exactness gate
+   against the host engine's, K1 and K3's scored form must launch, and
+   every wrapper call of the device tasks, recorded again, is held bit for
+   bit against the kernels' plain versions. ``cli dump`` runs as a
+   subprocess, and ``pyresearch`` reads the index as the reader does.
+   Prints docs/s of the put, each flush's ``invert_device`` seconds, the
+   consolidate seconds and per-category average µs of both engines;
+15. ``train_supervised`` on the card at AG News' shape (120,000 docs of
+   the ``bench_mix`` corpus of seed 45, 4 labels, the module defaults:
+   dim 16, 120 epochs, 2^15 buckets): the loss must fall and the training
+   accuracy pass chance; the first 2,000 docs trained on the card and on
+   the CPU (run in a thread beside the card's work) agree within the
+   test's tolerance, with equal top-1 predictions wherever the CPU's
+   margin exceeds it; the model saves and loads; a ``classification``
+   field written on the card over 10,000 docs is found by a ``ByTerm`` on
+   each label exactly for the docs ``predict`` gave it. Prints the
+   seconds per step, the peak device memory and the loss;
+16. ``dryrun_multihost(num_processes=2, devices_per_proc=4,
+   device="cuda")``: two processes of one ``gloo`` group on the one card,
+   each holding 4 of the 8 segments of the JAX dryrun's 1,536 docs; both
+   must print ``MULTIHOST_OK`` (exact parity with the host oracle, no
+   ``jax`` or ``iresearch_tpu`` module loaded) and their launches.
 
 The port and this script import nothing of ``jax`` or of the JAX package
 ``iresearch_tpu``; the run fails if either was loaded.
@@ -115,8 +143,9 @@ The port and this script import nothing of ``jax`` or of the JAX package
 It prints one JSON line of per-kernel results (``launches`` counts the
 400-query pass of phase 6, the tier batch of phase 8, the first runs of
 phase 9's queries, the index pass of phase 10, the sharded pass of
-phase 12 and the pass over phase 13's written index, each read with the
-counts reset just before), then, as its last line, ``{"ok": true,
+phase 12, the pass over phase 13's written index, phase 14's device
+search and phase 16's workers, each read with the counts reset just
+before), then, as its last line, ``{"ok": true,
 "device": {...}}``. Any failure raises: the exit code is not 0 and the
 last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
 N`` runs a smaller corpus while debugging, ``--ingest-docs N`` a smaller
@@ -130,10 +159,15 @@ the port, whose kernels it then times the same way).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -151,9 +185,35 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PER_CATEGORY_ORACLE = 5
 PASSES = 20  # timed batched passes
+SHARDED_PASSES = 5  # timed sharded passes (2-3 s each: cut from 20 to make room for phases 14-16)
 SINGLE_REPS = 20  # timed runs per breadth category and tier (bench.py's 20)
 GRAPH_INNER = 10  # copies of a call list in one captured graph
 GRAPH_REPLAYS = 20  # timed replays of that graph
+
+
+@contextlib.contextmanager
+def scoped_clock():
+    """Install a timer registry that notes every scoped timer of the port
+    (``utils/timer.py``) call by call: yields the list it appends
+    (name, seconds, thread ident) to, in the order the calls end."""
+    from iresearch_tpu_torch.utils import timer
+
+    calls = []
+
+    class Clock(timer.TimerRegistry):
+        @contextlib.contextmanager
+        def scoped(self, name):
+            t = time.perf_counter()
+            try:
+                yield
+            finally:
+                calls.append((name, time.perf_counter() - t, threading.get_ident()))
+
+    saved, timer._registry = timer._registry, Clock()
+    try:
+        yield calls
+    finally:
+        timer._registry = saved
 
 
 def phase(name, t0):
@@ -491,7 +551,13 @@ def check_calls(torch, prep, what):
     """Every call of a kernel's wrapper that the groups of a prepared batch
     make, recorded and held bit for bit against the kernel's plain version
     on the same inputs (no timing); returns the calls checked per kernel."""
-    rec = recorded(prep.calls)
+    return check_recorded(torch, recorded(prep.calls), what)
+
+
+def check_recorded(torch, rec, what):
+    """Recorded wrapper calls ({field: [(args, kwargs), ...]}) held bit for
+    bit against the kernels' plain versions; returns the calls checked per
+    kernel."""
     for a, kk in rec["rowmax"]:
         k1_equal(torch, a, kk)
     for a, _kw in rec["row_slices"]:
@@ -1238,13 +1304,14 @@ def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
         fn()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        for _ in range(PASSES):
+        for _ in range(SHARDED_PASSES):
             fn()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t2) * 1e3 / PASSES
+        return (time.perf_counter() - t2) * 1e3 / SHARDED_PASSES
 
     ms = ms_per_pass(lambda: prep.run(k))
-    print(f"sharded passes: {PASSES} x {len(tasks)} queries in {ms * PASSES / 1e3:.4f} s -> "
+    print(f"sharded passes: {SHARDED_PASSES} x {len(tasks)} queries in "
+          f"{ms * SHARDED_PASSES / 1e3:.4f} s -> "
           f"{len(tasks) / ms * 1e3:.1f} QPS ({ms:.4f} ms/pass) on {kind} ({smi})")
     one = ss.prepare(tasks[0][1], scorer, k_max=k)
     print(f"sharded single query (prepare, {len(srs)} segments + merge): "
@@ -1311,8 +1378,6 @@ def run_ingest(torch, num_docs, want, dev, smi):
     committed, consolidated and a delete applied; the consolidated "body"
     field held against ``want`` (phase 10's segment of the same seed).
     Returns the reader after the delete and the removed term."""
-    from contextlib import contextmanager
-
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.formats.segment_io import CURRENT_FORMAT, write_segment
     from iresearch_tpu_torch.index.consolidate import consolidate_count
@@ -1320,22 +1385,6 @@ def run_ingest(torch, num_docs, want, dev, smi):
     from iresearch_tpu_torch.index.writer import Field, IndexWriter, IndexWriterOptions
     from iresearch_tpu_torch.search import filters as F
     from iresearch_tpu_torch.store.directory import MemoryDirectory
-    from iresearch_tpu_torch.utils import timer
-
-    class FlushClock(timer.TimerRegistry):
-        """The writer's scoped timers, each call's seconds in order."""
-
-        def __init__(self):
-            super().__init__()
-            self.calls = []
-
-        @contextmanager
-        def scoped(self, name):
-            t = time.perf_counter()
-            try:
-                yield
-            finally:
-                self.calls.append((name, time.perf_counter() - t))
 
     t1 = time.perf_counter()
     buf, starts, ends = bench_mix.corpus_text(num_docs, bench_mix.SEED + 1)
@@ -1347,9 +1396,7 @@ def run_ingest(torch, num_docs, want, dev, smi):
         raise AssertionError(f"writer defaults {opts}")
     d = MemoryDirectory()
     w = IndexWriter(d, opts, device=dev)
-    clock = FlushClock()
-    saved, timer._registry = timer._registry, clock
-    try:
+    with scoped_clock() as calls:
         t1 = time.perf_counter()
         for s, e in zip(starts.tolist(), ends.tolist()):
             w.insert([Field("body", buf[s:e].decode(), analyzer="segmentation")])
@@ -1362,11 +1409,9 @@ def run_ingest(torch, num_docs, want, dev, smi):
             raise AssertionError("commit published nothing")
         commit_s = time.perf_counter() - t1
         peak = torch.cuda.max_memory_allocated(dev)
-    finally:
-        timer._registry = saved
     del buf
-    flush_s = [t for n, t in clock.calls if n == "writer.flush"]
-    invert_s = [t for n, t in clock.calls if n == "writer.invert"]
+    flush_s = [t for n, t, _th in calls if n == "writer.flush"]
+    invert_s = [t for n, t, _th in calls if n == "writer.invert"]
     cap = opts.segment_docs_max
     sizes = [cap] * (num_docs // cap) + ([num_docs % cap] if num_docs % cap else [])
     if len(flush_s) != len(sizes) or len(invert_s) != len(sizes):
@@ -1503,6 +1548,332 @@ def serve_ingested(torch, reader, term, scorer, k, dev, smi, kind):
           f"K2 {launches['dma_row_slices']}, K3 plain {launches['decode_rows']}, K3 scored "
           f"{launches['decode_score_rows']} launches in the checked pass, on {kind} ({smi})")
     return launches
+
+
+def write_linedocs(path, num_docs, seed, first):
+    """The first ``first`` docs of the ``num_docs``-doc ``bench_mix``
+    corpus of ``seed`` as a luceneutil line-docs file
+    (``title<TAB>date<TAB>body``); returns their token count."""
+    from iresearch_tpu_torch import bench_mix
+
+    buf, starts, ends = bench_mix.corpus_text(num_docs, seed)
+    starts, ends = starts[:first].tolist(), ends[:first].tolist()
+    with open(path, "wb") as f:
+        for d, (s, e) in enumerate(zip(starts, ends)):
+            f.write(b"doc%d\t2012-05-02\t%s\n" % (d, buf[s:e]))
+    return sum((e + 1 - s) // 8 for s, e in zip(starts, ends))
+
+
+def tee(fn, *args):
+    """``fn(*args)`` with its standard output captured and echoed:
+    (result, output)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        r = fn(*args)
+    print(out.getvalue(), end="", flush=True)
+    return r, out.getvalue()
+
+
+CLI_DOCS = 1 << 18  # the first docs of phase 13's text that phase 14 puts
+CLI_SEGMENT_DOCS = 1 << 17  # its flush threshold: two flushes, one merge
+
+
+def run_cli(torch, num_docs, dev, smi, tmp):
+    """Phase 14: the CLI and pyresearch on the card over the first
+    ``CLI_DOCS`` docs of phase 13's text (``num_docs`` docs). Returns the
+    launches of ``search --engine device``."""
+    from iresearch_tpu_torch import bench_mix, pyresearch
+    from iresearch_tpu_torch.cli import index_search
+    from iresearch_tpu_torch.cli.__main__ import main as cli
+    from iresearch_tpu_torch.exec import DeviceQuery
+    from iresearch_tpu_torch.exec.executor import KERNELS
+    from iresearch_tpu_torch.index.reader import DirectoryReader
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.search import filters as F
+    from iresearch_tpu_torch.search.host_eval import match_docs
+    from iresearch_tpu_torch.search.scorers import get_scorer
+    from iresearch_tpu_torch.store.directory import FSDirectory
+
+    lines, idx = os.path.join(tmp, "lines.txt"), os.path.join(tmp, "index")
+    t1 = time.perf_counter()
+    ntok = write_linedocs(lines, num_docs, bench_mix.SEED + 1, CLI_DOCS)
+    num_docs = min(num_docs, CLI_DOCS)
+    print(f"cli: line-docs file of the first {num_docs} docs of phase 13's text, {ntok} "
+          f"tokens (seed {bench_mix.SEED + 1}), {os.path.getsize(lines)} bytes in "
+          f"{time.perf_counter() - t1:.3f} s")
+    threads = 4
+    put = ["put", "--in", lines, "--index-dir", idx, "--threads", str(threads),
+           "--segment-docs-max", str(CLI_SEGMENT_DOCS), "--consolidate", "--invert", "auto",
+           "--device", str(dev)]
+    with scoped_clock() as calls:
+        t1 = time.perf_counter()
+        rc, _out = tee(cli, put)
+        put_s = time.perf_counter() - t1
+    if rc != 0:
+        raise AssertionError(f"cli put: rc {rc}")
+    flushes, inverts = [], []  # each flush inverts its 4 fields before it ends
+    for n, t, _th in calls:
+        if n == "writer.invert":
+            inverts.append(t)
+        elif n == "writer.flush":
+            flushes.append((t, inverts))
+            inverts = []
+    merge_s = [t for n, t, _th in calls if n == "writer.consolidate_merge"]
+    if len(flushes) != -(-num_docs // CLI_SEGMENT_DOCS) or inverts or any(
+            len(inv) != 4 for _t, inv in flushes):
+        raise AssertionError(f"flushes and their inversions on the card: {flushes}")
+    print(f"cli put: {num_docs / put_s:.1f} docs/s ({put_s:.3f} s for {num_docs} docs: "
+          f"{threads} indexer threads, an FSDirectory, --invert auto on {dev}, commit "
+          f"and --consolidate included) on {smi}")
+    for i, (fs, inv) in enumerate(flushes):
+        print(f"  flush {i}: {fs:.3f} s, of it invert_device {sum(inv):.3f} s "
+              f"(id, title, date, body: {', '.join(f'{t:.3f}' for t in inv)}) on {smi}")
+    print(f"  consolidate: {sum(merge_s):.3f} s in {len(merge_s)} merges "
+          f"(writer.consolidate_merge) on {smi}")
+    reader = DirectoryReader.open(FSDirectory(idx))
+    segs = list(reader.segments)
+    if not merge_s or len(segs) != 1:
+        raise AssertionError(f"--consolidate: {len(merge_s)} merges, {len(segs)} segments")
+    if reader.docs_count != num_docs or reader.live_docs_count != num_docs:
+        raise AssertionError(f"cli put wrote {reader.docs_count} docs")
+    print(f"  index: {len(segs)} segments {[sr.num_docs for sr in segs]}, "
+          f"{sum(os.path.getsize(os.path.join(idx, f)) for f in os.listdir(idx))} bytes")
+
+    tasks_path = os.path.join(tmp, "tasks.txt")
+    task_lines = bench_mix.task_lines(segs[0], 5)
+    with open(tasks_path, "w") as f:
+        f.write("\n".join(task_lines) + "\n")
+    # what ``main`` computes, noted on its way out
+    seen = []
+    run_tasks = index_search.run_tasks
+
+    def noting(*a):
+        seen.append(run_tasks(*a))
+        return seen[-1]
+
+    search = ["search", "--in", tasks_path, "--index-dir", idx, "--topN", "10",
+              "--max-tasks", "5", "--csv", "--device", str(dev)]
+    index_search.run_tasks = noting
+    try:
+        kb.reset_launch_counts()
+        rc_d, _out = tee(cli, search + ["--engine", "device"])
+        launches = kb.launch_counts()
+        rc_h, _out = tee(cli, search + ["--engine", "host"])
+    finally:
+        index_search.run_tasks = run_tasks
+    if (rc_d, rc_h) != (0, 0) or len(seen) != 2:
+        raise AssertionError(f"cli search: rc {rc_d} and {rc_h}")
+    (dstats, dres), (hstats, hres) = seen
+    if list(dres) != list(hres) or len(dres) != 110:
+        raise AssertionError(f"{len(dres)} device tasks, {len(hres)} host tasks")
+    for (cat, text), hits in dres.items():
+        want = hres[(cat, text)]
+        assert_gate(np.array([v for _d, v in hits], np.float32), np.array([d for d, _v in hits]),
+                    np.array([d for d, _v in want]), np.array([v for _d, v in want]),
+                    f"cli {cat} {text!r}")
+    empty = sorted({cat for (cat, _t), hits in dres.items() if not hits})
+    print(f"cli search: {len(dres)} tasks of {len(dstats)} categories, the device engine's "
+          f"hits pass the exactness gate against the host engine's (categories without a "
+          f"hit: {empty}); launches {launches}")
+    for name in ("dense_scan_rowmax", "decode_score_rows"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched by cli search")
+    print(f"per category, average us: device engine / host engine, on {smi}")
+    for cat in sorted(dstats):
+        (n, ds), (_n, hs) = dstats[cat], hstats[cat]
+        print(f"  {cat}: {ds * 1e6 / n:.0f} / {hs * 1e6 / n:.0f} ({n} tasks)")
+
+    # every wrapper call the device tasks made, again, recorded and held
+    # against the kernels' plain versions
+    scorer = get_scorer("bm25", {})
+    rec = {name: [] for name in KERNELS._fields}
+    for cat, text in dres:
+        dq = DeviceQuery(index_search.build_filter(cat, text, 16), segs, scorer, device=dev)
+        for si in range(len(segs)):
+            _tier, fn, args, kw = dq.call(si, 10)
+            for name, made in record_calls(KERNELS, fn, args, kw).items():
+                rec[name].extend(made)
+    checked = check_recorded(torch, rec, "cli device tasks")
+    for name, n in launches.items():
+        if n > checked[name]:
+            raise AssertionError(f"kernel {name}: {n} launches by cli search, "
+                                 f"{checked[name]} calls checked")
+
+    r = subprocess.run(
+        [sys.executable, "-m", "iresearch_tpu_torch.cli", "dump", "--index-dir", idx,
+         "--max-terms", "5"], cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", "")),
+    )
+    if r.returncode != 0 or f"{num_docs} docs ({num_docs} live)" not in r.stdout:
+        raise AssertionError(f"cli dump: rc {r.returncode}\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    print("cli dump (a subprocess):\n" + "\n".join(r.stdout.splitlines()[:16]))
+    pr = pyresearch.index_reader.open(idx)
+    sr, fp = segs[0], segs[0].field("body")
+    pf = next(iter(pr)).field("body")
+    tid = int(np.argmax(fp.entries[:, 0]))
+    term = sr.terms("body")[tid]
+    it = pf.iterator()
+    if pr.docs_count() != reader.docs_count or pf.terms_count() != fp.num_terms or not it.seek(term):
+        raise AssertionError("pyresearch: docs, terms or the seek differ from the reader")
+    docs = list(it.postings())
+    if docs != match_docs(F.ByTerm("body", term), sr).tolist():
+        raise AssertionError(f"pyresearch: postings of {term!r} differ from the reader")
+    print(f"pyresearch: {pr.docs_count()} docs, {pf.terms_count()} body terms in segment 0, "
+          f"the df-rank-0 term {term!r} with {len(docs)} docs through doc_iterator: equal to "
+          f"the reader's")
+    return launches
+
+
+EMBED_DOCS = 120_000  # AG News' training docs
+EMBED_LABELS = 4  # and its labels
+EMBED_CHECK_DOCS = 2_000  # trained on the card and on the CPU
+EMBED_INDEX_DOCS = 10_000  # written with the classification analyzer
+EMBED_SEED = 45
+
+
+def embed_corpus(num_docs, seed):
+    """(texts, labels): the ``bench_mix`` corpus of ``seed`` as token
+    lists; each vocabulary term from df rank 1,000 on but the last gets a
+    seeded label, and a doc takes the label most of those tokens have (the
+    lowest on a tie). The 1,000 commonest terms (85% of the tokens) and
+    the last, which holds the clipped Zipf tail, carry no label, or one
+    label would win almost every doc."""
+    from iresearch_tpu_torch import bench_mix
+
+    lens, tids = bench_mix.build_corpus(num_docs, seed)
+    buf, starts, ends = bench_mix.corpus_text(num_docs, seed)
+    texts = [buf[s:e].split() for s, e in zip(starts.tolist(), ends.tolist())]
+    term_label = np.random.default_rng([seed, 1]).integers(0, EMBED_LABELS, bench_mix.VOCAB)
+    doc = np.repeat(np.arange(num_docs), lens)
+    tail = (tids >= 1000) & (tids < bench_mix.VOCAB - 1)  # the term id is its rank
+    counts = np.bincount(doc[tail] * EMBED_LABELS + term_label[tids[tail]],
+                         minlength=num_docs * EMBED_LABELS).reshape(num_docs, EMBED_LABELS)
+    return texts, [b"__label__%d" % c for c in counts.argmax(axis=1)]
+
+
+def run_embed(torch, num_docs, dev, smi, tmp):
+    """Phase 15: ``train_supervised`` on the card at AG News' shape, held
+    against the plain CPU run on the first docs; the model saved, loaded
+    and served through a ``classification`` field."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from iresearch_tpu_torch import analysis
+    from iresearch_tpu_torch.analysis import embed
+    from iresearch_tpu_torch.exec import DeviceQuery
+    from iresearch_tpu_torch.index.reader import DirectoryReader
+    from iresearch_tpu_torch.index.writer import Field, IndexWriter, IndexWriterOptions
+    from iresearch_tpu_torch.search import filters as F
+    from iresearch_tpu_torch.store.directory import MemoryDirectory
+
+    atol, rtol = 1e-5, 1e-4  # tests/test_torch_embed.py
+    t1 = time.perf_counter()
+    texts, labels = embed_corpus(num_docs, EMBED_SEED)
+    print(f"embed corpus: {num_docs} docs, {sum(map(len, texts))} tokens, "
+          f"{EMBED_LABELS} labels (seed {EMBED_SEED}) in {time.perf_counter() - t1:.3f} s")
+    small = (texts[:EMBED_CHECK_DOCS], labels[:EMBED_CHECK_DOCS])
+    with ThreadPoolExecutor(1) as pool:
+        # the CPU's run takes minutes: it goes on beside the card's work
+        cpu_run = pool.submit(embed.train_supervised, *small, device="cpu")
+        card_small = embed.train_supervised(*small, device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        me = threading.get_ident()
+        with scoped_clock() as calls:
+            t1 = time.perf_counter()
+            model = embed.train_supervised(texts, labels, device=dev)
+            total_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated(dev)
+        rows_s = sum(t for n, t, th in calls if n == "embed.rows" and th == me)
+        train_s = sum(t for n, t, th in calls if n == "embed.train" and th == me)
+        epochs = len(model.losses)
+        print(f"embed train_supervised on the card: {num_docs} docs, dim {model.dim}, "
+              f"{epochs} epochs, {model.buckets} buckets, vocab {len(model.vocab)}: "
+              f"{total_s:.3f} s, of it the host's row matrices {rows_s:.3f} s and the "
+              f"training {train_s:.3f} s = {train_s / epochs:.5f} s per step (upload and "
+              f"fetch included); peak device memory {peak} bytes ({peak - base} above "
+              f"the {base} resident); loss {model.losses[0]:.6f} -> {model.losses[-1]:.6f}, "
+              f"on {smi}")
+        if not np.isfinite(model.losses).all() or not model.losses[-1] < model.losses[0]:
+            raise AssertionError(f"the loss did not fall: {model.losses[[0, -1]]}")
+        sample = np.random.default_rng(EMBED_SEED).choice(num_docs, 2_000, replace=False)
+        hits = sum(model.predict(texts[i])[0][0] == labels[i] for i in sample)
+        share = max(Counter(labels).values()) / num_docs
+        print(f"  training accuracy on 2,000 sampled docs: {hits / 2_000:.4f} (chance "
+              f"{1 / EMBED_LABELS}, the largest label's share {share:.4f})")
+        if not hits / 2_000 > 1 / EMBED_LABELS:
+            raise AssertionError("training accuracy at or below chance")
+        cpu_small = cpu_run.result()
+    for what, a, b in (("input", card_small.input_vectors, cpu_small.input_vectors),
+                       ("label", card_small.label_vectors, cpu_small.label_vectors)):
+        np.testing.assert_allclose(a, b, atol=atol, rtol=rtol, err_msg=f"{what} vectors")
+    margin_docs = same = 0
+    for t in small[0]:
+        want = cpu_small.predict(t, k=2)
+        if len(want) > 1 and want[0][1] - want[1][1] <= atol:
+            continue
+        margin_docs += 1
+        same += card_small.predict(t)[0][0] == want[0][0]
+    if same != margin_docs:
+        raise AssertionError(f"top-1 predictions: {same} of {margin_docs} equal")
+    err = float(np.abs(card_small.input_vectors - cpu_small.input_vectors).max())
+    print(f"  the first {EMBED_CHECK_DOCS} docs trained on the card and on the CPU: vectors "
+          f"within atol {atol} + rtol {rtol} (max abs difference {err:.3g}); top-1 "
+          f"predictions equal on all {margin_docs} docs whose CPU margin exceeds {atol}")
+
+    path = os.path.join(tmp, "embed.npz")
+    model.save(path)
+    back = embed.EmbeddingModel.load(path)
+    if not (back.vocab == model.vocab and back.labels == model.labels
+            and np.array_equal(back.input_vectors, model.input_vectors)
+            and np.array_equal(back.label_vectors, model.label_vectors)):
+        raise AssertionError("the model did not load back as saved")
+    clf = analysis.get("classification", {"model_location": path})
+    d = MemoryDirectory()
+    t1 = time.perf_counter()
+    with IndexWriter(d, IndexWriterOptions(), device=dev) as w:
+        for t in texts[:EMBED_INDEX_DOCS]:
+            w.insert([Field("label", b" ".join(t).decode(), analyzer=clf)])
+        w.commit()
+    write_s = time.perf_counter() - t1
+    segs = list(DirectoryReader.open(d).segments)
+    want = {}
+    by_label = {}
+    for i, t in enumerate(texts[:EMBED_INDEX_DOCS]):
+        lbl = back.predict(t)[0][0]
+        by_label.setdefault(lbl, []).append(i)
+    for lbl in back.labels:
+        docs = by_label.get(lbl, [])
+        got = DeviceQuery(F.ByTerm("label", lbl.decode()), segs, device=dev).top_k(
+            EMBED_INDEX_DOCS)
+        if sorted(g for g, _v in got) != docs:
+            raise AssertionError(f"ByTerm({lbl!r}): {len(got)} docs, predict gave {len(docs)}")
+        want[lbl.decode()] = len(docs)
+    print(f"  saved ({os.path.getsize(path)} bytes) and loaded back equal; a classification "
+          f"field over {EMBED_INDEX_DOCS} docs written on the card in {write_s:.3f} s: "
+          f"ByTerm on each label finds exactly the docs predict gave it {dict(want)}, on {smi}")
+
+
+def run_multihost(smi):
+    """Phase 16: the multi-process dryrun with both workers on the card.
+    Returns the workers' launches, summed."""
+    from iresearch_tpu_torch.parallel.multihost import dryrun_multihost
+
+    t1 = time.perf_counter()
+    outs = dryrun_multihost(num_processes=2, devices_per_proc=4, device="cuda")
+    total = Counter()
+    for pid, out in enumerate(outs):
+        ok = re.search(rf"^MULTIHOST_OK process={pid}/2 .*$", out, re.M)
+        m = re.search(rf"^MULTIHOST_LAUNCHES process={pid} (.*) tiers=(.*)$", out, re.M)
+        if ok is None or m is None or "device=cuda:0" not in ok.group(0):
+            raise AssertionError(f"multihost worker {pid}:\n{out[-2000:]}")
+        launches = json.loads(m.group(1))
+        print(f"multihost worker {pid}: {ok.group(0)}; launches {launches} in its "
+              f"groups' tiers {m.group(2)}")
+        total.update(launches)
+    print(f"multihost dryrun: 2 processes on one card, 1,536 docs in 8 segments, "
+          f"{time.perf_counter() - t1:.3f} s, on {smi}")
+    return {name: total[name] for name in launches}
 
 
 def main() -> int:
@@ -1671,6 +2042,20 @@ def main() -> int:
     ingested, removed = run_ingest(torch, args.ingest_docs, want, dev, smi)
     ingest_launches = serve_ingested(torch, ingested, removed, scorer, k, dev, smi, kind)
     phase("13 ingest", t0)
+
+    os.makedirs(cache_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_", dir=cache_dir) as tmp:
+        t0 = time.perf_counter()
+        cli_launches = run_cli(torch, args.ingest_docs, dev, smi, tmp)
+        phase("14 cli", t0)
+
+        t0 = time.perf_counter()
+        run_embed(torch, EMBED_DOCS, dev, smi, tmp)
+        phase("15 embed", t0)
+
+    t0 = time.perf_counter()
+    multihost_launches = run_multihost(smi)
+    phase("16 multihost", t0)
     if args.profile:
         profile_passes(torch, prep.run_grouped, args.profile, kind, smi, prep.calls)
         profile_tiers(torch, tier_prep, smi)
@@ -1685,7 +2070,8 @@ def main() -> int:
 
     counts = dict(launches_pass=launches, launches_tiers=tier_launches,
                   launches_phrase=phrase_launches, launches_index=index_launches,
-                  launches_sharded=sharded_launches, launches_ingest=ingest_launches)
+                  launches_sharded=sharded_launches, launches_ingest=ingest_launches,
+                  launches_cli=cli_launches, launches_multihost=multihost_launches)
     for name in kb.KERNELS:
         if sum(c[name] for c in counts.values()) <= 0:
             raise AssertionError(f"kernel {name} never launched on a main path")

@@ -24,3 +24,39 @@ Conventions:
 """
 
 __version__ = "0.1.0"
+
+_LAZY = {
+    "IndexWriter": ("iresearch_tpu_torch.index.writer", "IndexWriter"),
+    "IndexWriterOptions": ("iresearch_tpu_torch.index.writer", "IndexWriterOptions"),
+    "DirectoryReader": ("iresearch_tpu_torch.index.reader", "DirectoryReader"),
+    "Directory": ("iresearch_tpu_torch.store.directory", "Directory"),
+    "FSDirectory": ("iresearch_tpu_torch.store.directory", "FSDirectory"),
+    "MMapDirectory": ("iresearch_tpu_torch.store.directory", "MMapDirectory"),
+    "MemoryDirectory": ("iresearch_tpu_torch.store.directory", "MemoryDirectory"),
+}
+
+
+def __getattr__(name):
+    """Lazy top-level exports: ``import iresearch_tpu_torch`` imports no
+    torch, touches no card and builds no kernel."""
+    try:
+        module, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(name) from None
+    import importlib
+
+    value = getattr(importlib.import_module(module), attr)
+    globals()[name] = value
+    return value
+
+
+__all__ = [
+    "IndexWriter",
+    "IndexWriterOptions",
+    "DirectoryReader",
+    "Directory",
+    "FSDirectory",
+    "MMapDirectory",
+    "MemoryDirectory",
+    "__version__",
+]

@@ -5,9 +5,8 @@ Reference: core/analysis/ — 13 registered analyzers configured from JSON
 pipeline_token_stream.hpp:36, delimited_token_stream.hpp:37,
 minhash_token_stream.hpp:33-75, ...). A copy of
 ``iresearch_tpu/analysis/analyzers.py``; it registers the same names. The
-``classification`` and ``nearest_neighbors`` analyzers need the embedding
-model of ``analysis/embed.py``, which the port does not carry yet: their
-factories raise ``NotImplementedError``.
+``classification`` and ``nearest_neighbors`` analyzers run the embedding
+model of ``analysis/embed.py``.
 
 Analyzers here are batch-oriented: ``tokenize(text)`` returns a token list;
 the writer converts to flat (tid, doc, pos) arrays for device inversion.
@@ -635,20 +634,30 @@ register(
 )
 
 
-def _embed_factory(name: str):
-    """Reference: classification_stream.hpp:37 and
-    nearest_neighbors_stream.hpp:38 — both run an embedding model, which
-    the port's ``analysis/embed.py`` will carry (ROADMAP queue 1, item
-    15b)."""
+def _classification_factory(args: dict) -> Analyzer:
+    """Reference: classification_stream.hpp:37 — JSON args
+    model_location / top_k / threshold."""
+    from iresearch_tpu_torch.analysis.embed import ClassificationAnalyzer, load_model
 
-    def factory(args: dict) -> Analyzer:
-        raise NotImplementedError(
-            f"the {name!r} analyzer needs analysis/embed.py, not ported yet "
-            "(ROADMAP queue 1, item 15b)"
-        )
-
-    return factory
+    return ClassificationAnalyzer(
+        load_model(args["model_location"]),
+        SegmentationAnalyzer(),
+        top_k=int(args.get("top_k", 1)),
+        threshold=float(args.get("threshold", 0.0)),
+    )
 
 
-register("classification", _embed_factory("classification"))
-register("nearest_neighbors", _embed_factory("nearest_neighbors"))
+def _nearest_neighbors_factory(args: dict) -> Analyzer:
+    """Reference: nearest_neighbors_stream.hpp:38 — JSON args
+    model_location / top_k."""
+    from iresearch_tpu_torch.analysis.embed import NearestNeighborsAnalyzer, load_model
+
+    return NearestNeighborsAnalyzer(
+        load_model(args["model_location"]),
+        SegmentationAnalyzer(),
+        top_k=int(args.get("top_k", 1)),
+    )
+
+
+register("classification", _classification_factory)
+register("nearest_neighbors", _nearest_neighbors_factory)

@@ -219,6 +219,52 @@ def tier_tasks(sr) -> List[Tuple[str, object, Dict[str, object]]]:
     ]
 
 
+def task_lines(sr, per_category: int = 5) -> List[str]:
+    """A luceneutil task file over reader ``sr``: ``per_category`` lines
+    of each of the CLI's 22 categories (``cli/index_search.py``), their
+    terms taken from ``sr``'s df ranks (``bench.py``'s High, Med and Low
+    bands; HighPhrase pairs df ranks 10-19, which follow each other often
+    enough to match in a small corpus). Prefix3 and Wildcard name
+    prefixes and patterns of 1,000 rare ``t%06d`` words each (ranks
+    10,000-29,999), and Fuzzy terms are rare words too: an edit of a
+    ``t%06d`` word's digits reaches the commonest words, whose postings
+    the host oracle scores over every doc. The host evaluates an n-gram
+    similarity doc by doc, so the NGram lines take their 3 to 4 word
+    terms one band lower: Med, ranks 1,000-1,079 and Low."""
+    term_at, high, med, low = _ranked(sr)
+    out = []
+    for i in range(per_category):
+        h = high[4 * i : 4 * i + 6]
+        m = med[4 * i : 4 * i + 4]
+        lo = low[2 * i : 2 * i + 2]
+        p = [term_at(10 + 2 * i), term_at(11 + 2 * i)]
+        out += [
+            f"HighTerm: {h[0]} # 500",
+            f"MedTerm: {m[0]} # 50",
+            f"LowTerm: {lo[0]} # 5",
+            f'HighPhrase: "{p[0]} {p[1]}" # 50',
+            f'MedPhrase: "{m[0]} {m[1]}" # 5',
+            f'LowPhrase: "{lo[0]} {lo[1]}" # 1',
+            f"AndHighHigh: +{h[0]} +{h[1]} # 50",
+            f"AndHighMed: +{h[0]} +{m[0]} # 10",
+            f"AndHighLow: +{h[0]} +{lo[0]} # 1",
+            f"OrHighHigh: {h[0]} {h[1]} # 500",
+            f"OrHighMed: {h[0]} {m[0]} # 500",
+            f"OrHighLow: {h[0]} {lo[0]} # 500",
+            f"Prefix3: t01{i}~",
+            f"Wildcard: t02?{i}*",
+            f"Fuzzy1: {term_at(12345 + 1111 * i)}~1",
+            f"Fuzzy2: {term_at(16789 + 1111 * i)}~2",
+            f"Or4High: {' '.join(h[:4])} # 500",
+            f"Or6High4Med2Low: {' '.join(h + m + lo)} # 500",
+            f"MinMatch2High2Med: 2 {h[0]} {h[1]} {m[0]} {m[1]} # 50",
+            f"HighNGram: 7 {m[0]} {m[1]} {m[2]} # 50",
+            f"MedNGram: 5 {' '.join(term_at(1000 + 4 * i + j) for j in range(4))} # 5",
+            f"LowNGram: 5 {lo[0]} {lo[1]} {m[0]} # 1",
+        ]
+    return out
+
+
 @contextlib.contextmanager
 def planner_knobs(**knobs):
     """Set the port's planner knobs (``exec/plan.py:69-74``, and

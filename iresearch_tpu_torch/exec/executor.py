@@ -408,8 +408,14 @@ def wand_body(
 
 def entry_device(device) -> torch.device:
     """``device`` as a ``torch.device``; the card when it is None (raises
-    without one)."""
-    return require_cuda() if device is None else torch.device(device)
+    without one). ``"cuda"`` names the current card by its index, as the
+    tensors made on it report their device."""
+    if device is None:
+        return require_cuda()
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def check_port_objects(segments, scorer=None) -> None:

@@ -13,6 +13,13 @@ plus the ``DSLICE_PAD`` zero tail, sentinel row 0, ``base``/``bmax``/
 twin when exact, the ``norms_grid`` view, dense grid pools and position
 pools on first use, and the alive mask. u32 words are held as int32
 bit-views. Residency is per (reader, device).
+
+Every upload that the JAX package counts is counted in the resource
+manager's ``"device"`` category (``utils/resource.py``): a field's pools at
+construction, its position and dense grid pools on first use. A limiter
+may veto an upload (``ResourceLimitExceeded``); nothing vetoed is kept.
+``SegmentReader.invalidate_device()`` drops every residency of the reader
+and gives back what was counted.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from iresearch_tpu_torch.formats.columnstore import Column
 from iresearch_tpu_torch.formats.postings import FieldPostings
 from iresearch_tpu_torch.formats.spec import BLOCK, NUM_CLASSES, pad_docs
+from iresearch_tpu_torch.utils import resource
 
 
 @dataclass
@@ -292,6 +300,26 @@ class SegmentReader:
             return None
         return (span[0], span[1], cache.ndrows)
 
+    # --- device --------------------------------------------------------
+
+    def device(self, device=None) -> "DeviceSegment":
+        """This reader's residency on ``device`` (the card when None)."""
+        from iresearch_tpu_torch.device import require_cuda
+
+        return device_state(self, require_cuda() if device is None else device)
+
+    def device_field(self, field_name: str, device=None) -> "DeviceField":
+        """One field's pools on ``device`` (the card when None)."""
+        return self.device(device).field(field_name)
+
+    def invalidate_device(self) -> None:
+        """Drop every device residency of this reader and give back the
+        bytes counted for it."""
+        for st in self._device_states.values():
+            for df in st._fields.values():
+                resource.manager().decrease(resource.CATEGORY_DEVICE, df.device_bytes)
+        self._device_states.clear()
+
 
 def _pad_rows(arr: np.ndarray, rp: int) -> np.ndarray:
     out = np.zeros((rp,) + arr.shape[1:], arr.dtype)
@@ -358,6 +386,7 @@ class DeviceField:
             + self.base + self.bmax + self.bmaxf + [self.norms]
             + ([self.norms_u16] if self.norms_u16 is not None else [])
         )
+        resource.manager().increase(resource.CATEGORY_DEVICE, self.device_bytes)
         # position pools upload on first use (pos_words()): only phrase
         # queries touch them, and they are the largest transfer
         self._fp = fp
@@ -385,6 +414,7 @@ class DeviceField:
             t = torch.from_numpy(_i32(_pad_rows(src, _pow2(src.shape[0])))).to(
                 self.device
             )
+            resource.manager().increase(resource.CATEGORY_DEVICE, t.nbytes)
             self._pos_words[c] = t
             self.device_bytes += t.nbytes
         return t
@@ -394,6 +424,7 @@ class DeviceField:
         t = self._dense_words.get(c)
         if t is None:
             t = torch.from_numpy(_i32(dense_cache.pools[c])).to(self.device)
+            resource.manager().increase(resource.CATEGORY_DEVICE, t.nbytes)
             self._dense_words[c] = t
             self.device_bytes += t.nbytes
         return t

@@ -69,6 +69,18 @@ def _nvcc() -> str:
     return path
 
 
+def available() -> bool:
+    """True where the kernels can build and run: PyTorch sees a card and
+    ``nvcc`` is found."""
+    import torch
+
+    try:
+        _nvcc()
+    except RuntimeError:
+        return False
+    return torch.cuda.is_available()
+
+
 def _compile(so: Path) -> float:
     """nvcc -> ``so`` (atomic rename); returns the seconds it took. The
     compiler's output (``-Xptxas -v``: registers, spills) goes to a

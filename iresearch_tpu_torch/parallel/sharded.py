@@ -188,7 +188,10 @@ class ShardedSearcher:
     @property
     def device_bytes(self) -> int:
         """Bytes this searcher holds on the device beside the segments' own
-        residency: alive, norms and the uniform dense pools."""
+        residency: alive, norms and the uniform dense pools. They are not
+        counted in the resource manager's ``"device"`` category: the JAX
+        package counts nothing of its searcher either, only the segments'
+        residency (``index/segment.py``)."""
         ts = (list(self._alive.values()) + list(self._norms.values())
               + list(self._dense_pool_cache.values()))
         return sum(t.nbytes for t in ts)

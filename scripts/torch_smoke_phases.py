@@ -1,0 +1,181 @@
+"""Run single phases of ``chip_smoke.py`` (14 the CLI, 15 embedding
+training, 16 the multi-process dryrun) on one NVIDIA GPU, and two
+measurements behind their design:
+
+* ``--gloo``: whether a ``gloo`` group's ``all_gather`` takes CUDA tensors
+  (two processes on one card);
+* ``--gather-forms``: one training step of ``analysis/embed.py``'s loss at
+  phase 15's size (120,000 docs, [N, 1,805] row ids, dim 16) for each form
+  of the rows' gather and its backward: ``F.embedding``, ``emb[R]``,
+  ``index_select``, a CSR ``index_add`` over the real rows and
+  ``embedding_bag``.
+
+Usage, from the repo root on the card's machine::
+
+    python3 scripts/torch_smoke_phases.py [--gloo] [--gather-forms] \\
+        [--cli-docs N --cli-segment-docs M] [PHASE ...]
+
+``--cli-docs`` and ``--cli-segment-docs`` set phase 14's docs and flush
+threshold (``chip_smoke.CLI_DOCS``, ``CLI_SEGMENT_DOCS``). Failures are
+printed and the next phase runs; the exit code is 1 if one failed.
+"""
+
+import argparse
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+GLOO = r"""
+import sys, torch, torch.distributed as dist
+rank, port = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method="tcp://localhost:" + port, world_size=2, rank=rank)
+x = torch.full((3, 4), float(rank), device="cuda:0")
+out = [torch.empty_like(x) for _ in range(2)]
+dist.all_gather(out, x)
+torch.cuda.synchronize()
+print("GLOO_CUDA_ALLGATHER_OK", [o[0, 0].item() for o in out], out[1].device, flush=True)
+dist.destroy_process_group()
+"""
+
+
+def gloo_check():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen([sys.executable, "-c", GLOO, str(r), port],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    for p in procs:
+        out, _ = p.communicate(timeout=120)
+        print(f"gloo worker rc {p.returncode}: {out[-1500:]}", flush=True)
+        if p.returncode != 0:
+            raise RuntimeError("gloo all_gather of CUDA tensors failed")
+
+
+def gather_forms(torch, cs):
+    import numpy as np
+    import torch.nn.functional as F
+
+    from iresearch_tpu_torch.analysis import embed
+
+    dev = torch.device("cuda", 0)
+    t = time.perf_counter()
+    texts, labels = cs.embed_corpus(cs.EMBED_DOCS, cs.EMBED_SEED)
+    vocab = sorted({w for tx in texts for w in tx})
+    model = embed.EmbeddingModel(vocab, np.zeros((len(vocab) + (1 << 15), 16), np.float32),
+                                 sorted(set(labels)), None, buckets=1 << 15)
+    R, M = embed.doc_rows(model, texts)
+    print(f"rows {R.shape} in {time.perf_counter() - t:.3f} s", flush=True)
+    lab = {b: i for i, b in enumerate(sorted(set(labels)))}
+    y = torch.tensor([lab[b] for b in labels], device=dev)
+    N, maxr = R.shape
+    V = len(vocab) + (1 << 15)
+    emb0 = (np.random.default_rng(0).standard_normal((V, 16)) / 16).astype(np.float32)
+    Rt = torch.from_numpy(R).to(dev)
+    Rl = Rt.long()
+    Mt = torch.from_numpy(M).to(dev)
+    denom = Mt.sum(1).clamp_min(1.0)[:, None]
+    mask = M > 0
+    flat = torch.from_numpy(R[mask]).to(dev)
+    doc_of = torch.from_numpy(np.nonzero(mask)[0]).to(dev)
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(mask.sum(1))[:-1]])).to(dev)
+    print(f"real rows {flat.numel()} of {N * maxr}", flush=True)
+
+    def loss_of(doc, out):
+        logits = doc @ out.T
+        return (torch.logsumexp(logits, 1) - logits.gather(1, y[:, None])[:, 0]).mean()
+
+    forms = {
+        "embedding": lambda emb: (F.embedding(Rt, emb) * Mt[:, :, None]).sum(1) / denom,
+        "index": lambda emb: (emb[Rl] * Mt[:, :, None]).sum(1) / denom,
+        "index_select": lambda emb: (emb.index_select(0, Rt.reshape(-1)).reshape(N, maxr, 16)
+                                     * Mt[:, :, None]).sum(1) / denom,
+        "csr_index_add": lambda emb: torch.zeros(N, 16, device=dev).index_add(
+            0, doc_of, F.embedding(flat, emb)) / denom,
+        "embedding_bag": lambda emb: F.embedding_bag(flat, emb, offsets, mode="sum") / denom,
+    }
+    ref = None
+    for name, form in forms.items():
+        emb = torch.from_numpy(emb0).to(dev).requires_grad_()
+        out = torch.full((len(lab), 16), 0.01, device=dev).requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            g, go = torch.autograd.grad(loss_of(form(emb), out), (emb, out))
+            with torch.no_grad():
+                emb -= 0.5 * g
+                out -= 0.5 * go
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated(dev)
+        e = emb.detach().cpu().numpy()
+        ref = e if ref is None else ref
+        print(f"GATHER {name}: step {np.mean(times[1:]):.4f} s (first {times[0]:.3f}), peak "
+              f"{peak / 1e9:.2f} GB, max |emb - embedding's| {np.abs(e - ref).max():.3g}",
+              flush=True)
+        del emb, out, g, go
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("phases", nargs="*", choices=["14", "15", "16"])
+    ap.add_argument("--gloo", action="store_true")
+    ap.add_argument("--gather-forms", action="store_true")
+    ap.add_argument("--cli-docs", type=int)
+    ap.add_argument("--cli-segment-docs", type=int)
+    args = ap.parse_args()
+
+    import torch
+
+    import chip_smoke as cs
+    from iresearch_tpu_torch.kernels import build as kb
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"{smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    cs.CLI_DOCS = args.cli_docs or cs.CLI_DOCS
+    cs.CLI_SEGMENT_DOCS = args.cli_segment_docs or cs.CLI_SEGMENT_DOCS
+    failed = False
+    steps = (["gloo"] if args.gloo else []) + (["gather"] if args.gather_forms else [])
+    cache = os.path.join(REPO, ".bench_cache")
+    os.makedirs(cache, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    kb.library()
+    for step in steps + args.phases:
+        t0 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory(dir=cache) as tmp:
+                if step == "gloo":
+                    gloo_check()
+                elif step == "gather":
+                    gather_forms(torch, cs)
+                elif step == "14":
+                    print(cs.run_cli(torch, 1_250_000, dev, smi, tmp))
+                elif step == "15":
+                    cs.run_embed(torch, cs.EMBED_DOCS, dev, smi, tmp)
+                else:
+                    print(cs.run_multihost(smi))
+        except Exception:
+            failed = True
+            traceback.print_exc()
+            sys.stdout.flush()
+        print(f"step {step}: {time.perf_counter() - t0:.3f} s", flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,9 +7,8 @@ offsets and payload, token for token. The inputs are drawn from
 ``tests/test_analysis.py``, ``test_cjk.py``, ``test_multilang.py``,
 ``test_snowball_vendored.py`` and ``test_numeric_ngram.py``; the vendored
 snowball stemmers are also held against each other on seeded random
-words. ``classification`` and ``nearest_neighbors`` need the embedding
-model of ``analysis/embed.py``, which the port does not carry yet: their
-factories raise ``NotImplementedError``.
+words. ``classification`` and ``nearest_neighbors`` need an embedding
+model: ``tests/test_torch_embed.py`` holds them against the JAX package.
 """
 
 import json
@@ -132,12 +131,6 @@ def test_json_args_match_jax():
         JA.get("delimiter", args), "a;b;;c")
     with pytest.raises(KeyError):
         PA.get("nope")
-
-
-@pytest.mark.parametrize("name", EMBED)
-def test_embed_analyzers_raise_until_ported(name):
-    with pytest.raises(NotImplementedError, match="15b"):
-        PA.get(name, {"model_location": "/nonexistent"})
 
 
 def _words(rng, alphabet, suffixes, n):

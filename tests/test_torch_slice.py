@@ -242,6 +242,32 @@ v, dd = QueryBatch([F.ByTerm("body", "t000001")], r.segments, BM25(),
 assert int(dd[0, 0]) == 300 and torch.isfinite(v[0, 0])
 print("ingest ok", sorted(analysis.registered()))
 
+# the surfaces: the CLI (put, then search on the device engine), the
+# pyresearch facade, an embedding model trained with autograd, and the
+# multi-process dryrun's module
+import tempfile
+from iresearch_tpu_torch import pyresearch
+from iresearch_tpu_torch.analysis.embed import train_supervised
+from iresearch_tpu_torch.cli.__main__ import main as cli
+import iresearch_tpu_torch.parallel.multihost  # noqa: F401
+
+with tempfile.TemporaryDirectory() as tmp:
+    with open(tmp + "/lines.txt", "w") as f:
+        for i, (s, e) in enumerate(zip(starts.tolist(), ends.tolist())):
+            f.write("doc%d\t2012-05-02\t%s\n" % (i, buf[s:e].decode()))
+    assert cli(["put", "--in", tmp + "/lines.txt", "--index-dir", tmp + "/idx",
+                "--device", "cpu"]) == 0
+    with open(tmp + "/tasks.txt", "w") as f:
+        f.write("HighTerm: t000001 # 9\nOrHighMed: t000002 t000150 # 9\n")
+    assert cli(["search", "--in", tmp + "/tasks.txt", "--index-dir", tmp + "/idx",
+                "--engine", "device", "--device", "cpu", "--csv"]) == 0
+    assert pyresearch.index_reader.open(tmp + "/idx").docs_count() == 300
+texts = [buf[s:e].split() for s, e in zip(starts.tolist()[:40], ends.tolist()[:40])]
+m = train_supervised(texts, [b"a" if len(t) % 2 else b"b" for t in texts], epochs=3,
+                     buckets=64, device="cpu")
+assert m.losses.shape == (3,) and m.predict(texts[0])
+print("surfaces ok")
+
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "iresearch_tpu"))
 assert loaded == sorted(BLOCKED), loaded[:8]
 print("imports ok")
@@ -261,6 +287,7 @@ def _run_slice(blocked):
     assert r.returncode == 0, r.stderr[-3000:]
     assert "tiers" in r.stdout and "new tiers" in r.stdout and "imports ok" in r.stdout
     assert "sharded tiers" in r.stdout and "ingest ok" in r.stdout
+    assert "surfaces ok" in r.stdout and "HighTerm,1," in r.stdout
 
 
 def test_port_leaves_installed_jax_unimported():
@@ -268,8 +295,10 @@ def test_port_leaves_installed_jax_unimported():
     breadth categories, the tier batch, a sharded batch (with the store
     and utils copies imported) and an index written, consolidated and
     served through the port's analyzers, writer and reader leaves both
-    unimported: no
-    ``jax``, no ``iresearch_tpu`` and no ``iresearch_tpu.*`` module."""
+    unimported, as do the CLI (put, search on the device engine),
+    pyresearch, a tiny embedding model trained on the CPU and the
+    multi-process module: no ``jax``, no ``iresearch_tpu`` and no
+    ``iresearch_tpu.*`` module."""
     _run_slice([])
 
 
