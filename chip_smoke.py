@@ -3,7 +3,8 @@
 
 Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
 .prepare(0, 10).run_grouped()`` over the 400-query BM25 top-10 mix of
-``bench.py`` on one 5M-doc segment — and checks it:
+``bench.py`` on one 5M-doc segment, one CUDA graph replayed per pass
+(``exec/batch.py``'s fused pass) — and checks it:
 
 1. requires a CUDA device; prints the card's name and power limit;
 2. builds the kernels (nvcc, first use) and prints the build time;
@@ -27,17 +28,27 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    times the floor. ``plain_ms`` is the plain version's eager time between
    events; ``library_ms``, for K2, one PyTorch call of the same function
    (``index_select`` per pool; the port never calls it);
-6. runs the main path once with every launch count reset before it, and
-   fails unless each kernel launched; compares all 400 results with the
-   plain-torch run of the same batch (docs exact, scores rtol 1e-5) and
-   5 queries per category with the numpy oracle (``HostQuery``);
-7. times synchronised batched passes (QPS, for the record);
+6. runs the main path twice under PyTorch's sync debug mode set to raise:
+   the first run captures the pass into a CUDA graph and replays it (its
+   ms, the capture's host ms, the graph's nodes, its kernel launches per
+   replay and the device bytes its cache entry holds are printed), the
+   second, with every launch count reset before it, must hit the cache
+   and only replay; fails unless each kernel launched; the result must
+   equal the first run's, the eager pass's (``fused=False``) and the
+   plain-torch run's bit for bit, and 5 queries per category pass the
+   numpy oracle (``HostQuery``);
+7. times synchronised batched passes, fused and eager in turns (ms and
+   QPS, for the record; ``--profile``: device busy and idle share of each);
 8. on the same segment, drives the single-query executor
    (``DeviceQuery(..., device=dev)``) over ``bench.py``'s breadth
    categories but Phrase (phase 9) and PrefixHot, and one ``QueryBatch`` with a
    query per tier that decodes postings rows (fold, aux, wand, direct,
    sort, join, gridmix; planner knobs, where a tier needs them, set for
-   that query's plan alone and printed). Each is run with the launch
+   that query's plan alone and printed), whose fused pass (every tier in
+   one graph, captured under the sync debug mode) must agree with its
+   eager calls (docs equal, scores to rtol 1e-5: a fold's float
+   scatter-adds sum in no fixed order on the card, so runs may differ in
+   the last ulp; the bit-equal share is printed). Each is run with the launch
    counts reset before it and fails unless K3's scored form (every batch
    tier), K3's plain form (the join's probe) or the category's kernels
    launched; each result passes the exactness gate against the
@@ -62,16 +73,23 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    segment, a quarter of it with seed 43, and 1,000 docs with seed 44,
    ``bench.py``'s segment law, built here or loaded), all resident. The 400-query mix through
    ``QueryBatch(mix, segments).prepare_all(10).run()``: every segment's
-   groups and the merge on the device are enqueued with no synchronise
-   (PyTorch's sync debug mode raises on those it detects), then one fetch; K1, K2 and
-   K3's scored form must launch; every call that the pass makes of a
-   kernel's wrapper, in each segment (the smaller ones give the kernels
-   other shapes), is held bit for bit against the plain version; the
-   result is held against the plain-torch run, the host merge
+   groups and the merge in one CUDA graph, captured and replayed as in
+   phase 6 with no synchronise (PyTorch's sync debug mode raises on those
+   it detects), then one fetch; K1, K2 and K3's scored form must launch;
+   every call that the pass makes of a kernel's wrapper, in each segment
+   (the smaller ones give the kernels other shapes), is held bit for bit
+   against the plain version; the result is held against the eager pass
+   and the plain-torch run as in phase 8, and against the host merge
    (``QueryBatch.search``) and 25 queries of the numpy oracle over all
-   segments; device bytes per segment, QPS over one loop of passes as in
-   phase 7, the ms of the merge alone and synchronised ms for one query
-   are printed;
+   segments; device bytes per segment, ms and QPS of the fused and the
+   eager pass as in phase 7, each segment's groups alone, the ms of the
+   merge alone and synchronised ms for one query are printed. Then
+   serving: 20 requests, each a fresh ``QueryBatch(mix, segments)
+   .prepare_all(10).run()`` fetched, the fused cache emptied before the
+   first; every request after the first must hit its entry with no
+   capture, request 1's result agrees with request 20's and its tensors are
+   unchanged after request 20; prepare and run ms per request and the
+   end-to-end QPS are printed;
 11. ``invert_device`` on the second segment's token stream against
    ``invert_numpy``, field by field, with the seconds of both;
 12. the sharded executor over phase 10's index (``parallel/sharded.py``;
@@ -100,10 +118,11 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    "body" field equals phase 10's segment array for array and whose file
    equals its bytes; a remove of the df-rank-2000 term masks its docs.
    The 400-query mix over the written index through
-   ``QueryBatch(mix, reader.segments).prepare_all(10).run()``: enqueued with
-   no synchronise, K1, K2 and K3's scored form must launch, every wrapper
-   call of the pass is held bit for bit against its plain version, the
-   result against the plain-torch run and 25 queries of the numpy oracle,
+   ``QueryBatch(mix, reader.segments).prepare_all(10).run()``: captured and
+   replayed as in phase 6 with no synchronise, K1, K2 and K3's scored form
+   must launch, every wrapper call of the pass is held bit for bit against
+   its plain version, the result against the eager pass (as in phase 8),
+   the plain-torch run and 25 queries of the numpy oracle,
    and no deleted doc is returned. Prints docs/s and tokens/s of the
    inserts, each flush's seconds with its ``invert_device`` seconds, the
    flushes' peak device memory, commit, consolidate and reopen seconds,
@@ -140,12 +159,13 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
 The port and this script import nothing of ``jax`` or of the JAX package
 ``iresearch_tpu``; the run fails if either was loaded.
 
-It prints one JSON line of per-kernel results (``launches`` counts the
-400-query pass of phase 6, the tier batch of phase 8, the first runs of
-phase 9's queries, the index pass of phase 10, the sharded pass of
-phase 12, the pass over phase 13's written index, phase 14's device
-search and phase 16's workers, each read with the counts reset just
-before), then, as its last line, ``{"ok": true,
+It prints one JSON line of per-kernel results (``launches`` counts, each
+with the counts reset just before it: the replayed 400-query pass of
+phase 6 (a graph replay counts the launches its capture recorded), the
+tier batch of phase 8, the first runs of
+phase 9's queries, the replayed index pass of phase 10, the sharded
+pass of phase 12, the replayed pass over phase 13's written index, phase
+14's device search and phase 16's workers), then, as its last line, ``{"ok": true,
 "device": {...}}``. Any failure raises: the exit code is not 0 and the
 last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
 N`` runs a smaller corpus while debugging, ``--ingest-docs N`` a smaller
@@ -873,6 +893,101 @@ def sync_ms(torch, fn, reps=SINGLE_REPS):
     return (time.perf_counter() - t1) * 1e3 / reps
 
 
+def first_fused(torch, run, key, what, smi):
+    """The first run of a fused pass (``exec/batch.py``: warm-up, capture,
+    one replay), with PyTorch's sync debug mode set to raise, then a
+    second run (a cache hit: one replay) under the same mode with the
+    launch counts reset just before. Returns (first result, second
+    result, the cache entry, its stats): the ms of the first run to its
+    end, the capture's host ms, graph nodes, launches per replay, and the
+    device bytes that the entry holds (reserved after the run, the
+    allocator's cache emptied before and after, less before)."""
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.kernels import build as kb
+
+    if key in B._FUSED_CACHE:
+        raise AssertionError(f"{what}: the fused pass was captured before")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0, a0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.empty_cache()
+    entry = B._FUSED_CACHE[key]
+    stats = dict(first_ms=first_ms, capture_ms=entry.capture_s * 1e3, nodes=entry.nodes,
+                 launches_per_replay=dict(entry.launches),
+                 reserved_bytes=torch.cuda.memory_reserved() - r0,
+                 allocated_bytes=torch.cuda.memory_allocated() - a0)
+    n = len(B._FUSED_CACHE)
+    kb.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if len(B._FUSED_CACHE) != n or B._FUSED_CACHE[key] is not entry:
+        raise AssertionError(f"{what}: the second run captured again")
+    print(f"{what} fused: first run (warm-up, capture under the sync debug mode set to "
+          f"raise, one replay) {first_ms:.4f} ms, of it capture {stats['capture_ms']:.4f} ms "
+          f"host; {entry.nodes} graph nodes; kernel launches per replay {stats['launches_per_replay']}; "
+          f"the entry holds {stats['reserved_bytes']} bytes reserved "
+          f"({stats['allocated_bytes']} allocated) on {smi}")
+    return first, second, entry, stats
+
+
+def same_results(torch, got, want, what, exact=False):
+    """Raise unless two lists of (vals, docs) tensor pairs agree: docs
+    equal, scores bit for bit when ``exact``, else to rtol 1e-5 (a fold's
+    float scatter-adds sum in no fixed order on the card,
+    ``exec/executor.py``, so two runs may differ in the last ulp). Prints
+    how many pairs are bit-equal."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} vs {len(want)} results")
+    bits = 0
+    for (gv, gd), (wv, wd) in zip(got, want):
+        if gv.dtype != wv.dtype or gv.shape != wv.shape or not torch.equal(gd, wd):
+            raise AssertionError(f"{what}: docs differ")
+        if torch.equal(gv.view(torch.int32), wv.view(torch.int32)):
+            bits += 1
+        elif exact:
+            raise AssertionError(f"{what}: scores differ")
+        else:
+            torch.testing.assert_close(gv, wv, rtol=1e-5, atol=0.0, msg=what)
+    print(f"{what}: docs equal, scores bit-equal in {bits} of {len(got)} result pairs"
+          + ("" if bits == len(got) else ", the others within rtol 1e-5"))
+
+
+def pass_ms(torch, fn, passes=PASSES):
+    """Host ms per synchronised pass over a loop of ``passes`` runs of ``fn``
+    ending in one synchronise, after one warm run."""
+    fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(passes):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t1) * 1e3 / passes
+
+
+def both_ways(torch, run, n_queries, what, smi, kind):
+    """Pass ms and QPS of ``run(fused=True)`` and ``run(fused=False)``, in
+    turns (fused, eager, eager, fused), over ``PASSES`` passes each."""
+    ms = {True: [], False: []}
+    for fused in (True, False, False, True):
+        ms[fused].append(pass_ms(torch, lambda: run(fused=fused)))
+    for fused, name in ((True, "fused (one graph replay)"), (False, "eager (fused=False)")):
+        print(f"{what} {name}: {PASSES} passes x {n_queries} queries, "
+              f"{[round(x, 4) for x in ms[fused]]} ms/pass -> "
+              f"{[round(n_queries / x * 1e3, 1) for x in ms[fused]]} QPS on {kind} ({smi})")
+    return ms
+
+
 def run_breadth(torch, sr, scorer, k, dev, smi):
     """Phase 8a: the single-query executor over bench.py's breadth
     categories. Phrase has a phase of its own (9); PrefixHot is left out
@@ -1106,19 +1221,17 @@ def run_index(torch, srs, tasks, scorer, k, dev, smi, kind, profile):
             tq[t] += len(qis)
         print(f"  segment {s}: groups per tier {dict(Counter(c[0] for c in p.calls))}, "
               f"queries per tier {dict(tq)}")
-    kb.reset_launch_counts()
-    # nothing in the pass may wait for the device: a synchronise raises here
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        vals_t, docs_t = mb.run()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    # nothing in the pass may wait for the device, its capture included: a
+    # synchronise raises here
+    first, (vals_t, docs_t), entry, _stats = first_fused(torch, mb.run, mb.fused_key(),
+                                                         "index pass", smi)
     # one fetch (and with it the one synchronise) ends the pass
     packed = torch.stack([vals_t.view(torch.int32), docs_t]).cpu().numpy()
     launches = kb.launch_counts()
     vals, docs = packed[0].view(np.float32), packed[1]
     print(f"index pass: enqueued with no synchronise, one fetch of {packed.nbytes} bytes; "
           f"launches {launches}")
+    same_results(torch, [first], [(vals_t, docs_t)], "index pass: first and second fused run")
     for name in ("dense_scan_rowmax", "dma_row_slices", "decode_score_rows"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in the index pass")
@@ -1135,10 +1248,14 @@ def run_index(torch, srs, tasks, scorer, k, dev, smi, kind, profile):
     for name, n in launches.items():
         if n > sum(c[name] for c in checked):
             raise AssertionError(f"kernel {name}: {n} launches in the pass, fewer calls checked")
-    pv, pd = (t.cpu().numpy() for t in mb.run(plain=True))
+    same_results(torch, [(vals_t, docs_t)], [mb.run(fused=False)], "index pass: fused and eager")
+    plain = mb.run(plain=True)
+    same_results(torch, [(vals_t, docs_t)], [plain], "index pass: fused and plain")
+    pv, pd = (t.cpu().numpy() for t in plain)
     np.testing.assert_array_equal(docs, pd)
     np.testing.assert_allclose(vals, pv, rtol=1e-5, atol=0.0)
-    print(f"index pass vs plain-torch run: {len(tasks)} queries match")
+    print(f"index pass: the fused pass agrees with the eager pass and the plain-torch run "
+          f"on all {len(tasks)} queries")
     ref = qb.search(k)
     for qi, r in enumerate(ref):
         fin = np.isfinite(vals[qi])
@@ -1158,31 +1275,82 @@ def run_index(torch, srs, tasks, scorer, k, dev, smi, kind, profile):
           f"{dict(seen)} pass the exactness gate; {other} of the "
           f"{int(np.isfinite(vals).sum())} results lie outside segment 0")
 
-    def ms_per_pass(fn):
-        fn()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(PASSES):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t1) * 1e3 / PASSES
-
-    ms = ms_per_pass(mb.run)
-    per_seg = [ms_per_pass(p.run_grouped) for p in mb.preps]
+    both_ways(torch, mb.run, len(tasks), "index passes", smi, kind)
+    per_seg = {fused: [pass_ms(torch, lambda: p.run_grouped(fused)) for p in mb.preps]
+               for fused in (True, False)}
     outs = [g for p in mb.preps for g, _q in p.run_grouped()]
     merge = lambda: mb.merge(outs)  # noqa: E731
-    print(f"index passes: {PASSES} x {len(tasks)} queries in {ms * PASSES / 1e3:.4f} s -> "
-          f"{len(tasks) / ms * 1e3:.1f} QPS ({ms:.4f} ms/pass); each segment's groups alone "
-          f"{[round(x, 4) for x in per_seg]} ms/pass; the merge alone "
+    print(f"index: each segment's groups alone {[round(x, 4) for x in per_seg[True]]} ms/pass "
+          f"fused, {[round(x, 4) for x in per_seg[False]]} eager; the merge alone "
           f"{cuda_ms(torch, merge):.4f} ms between events, "
           f"{enqueue_ms(torch, merge):.4f} ms to enqueue, on {kind} ({smi})")
     high0 = tasks[0][1]
     one = QueryBatch([high0], srs, scorer, device=dev).prepare_all(k)
-    print(f"index single query (prepare_all, {len(srs)} segments + merge): "
-          f"{sync_ms(torch, one.run):.4f} ms/query synchronised ({SINGLE_REPS} runs) on {smi}")
+    print(f"index single query (prepare_all, {len(srs)} segments + merge, fused): "
+          f"{sync_ms(torch, one.run):.4f} ms/query synchronised ({SINGLE_REPS} runs); eager "
+          f"{sync_ms(torch, lambda: one.run(fused=False)):.4f} on {smi}")
     if profile:
-        profile_passes(torch, mb.run, profile + ".index", kind, smi)
+        for fused in (True, False):
+            profile_passes(torch, lambda: mb.run(fused=fused),
+                           f"{profile}.index.{'fused' if fused else 'eager'}", kind, smi)
     return launches, (vals, docs)
+
+
+SERVE_REQUESTS = 20
+
+
+def run_serving(torch, srs, tasks, scorer, k, dev, smi, kind):
+    """Phase 10, serving: a fresh ``QueryBatch(mix, segments)
+    .prepare_all(k).run()`` for each of ``SERVE_REQUESTS`` requests of the
+    400-query mix, each fetched, with the fused cache emptied before the
+    first. Every request after the first must hit the first one's entry (no
+    capture: the entry and the cache's size unchanged); request 1's result
+    equals the last one's, and request 1's device tensors, fetched again
+    after the last request, are unchanged. Prints prepare and run ms per
+    request and the end-to-end QPS."""
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.exec.batch import QueryBatch
+
+    filters = [f for _c, f in tasks]
+    B.clear_fused_cache()
+    torch.cuda.synchronize()
+    prep_ms, run_ms, fetched, kept = [], [], [], None
+    key = entry = size = None
+    t_all = time.perf_counter()
+    for r in range(SERVE_REQUESTS):
+        t1 = time.perf_counter()
+        mb = QueryBatch(filters, srs, scorer, wand=True, device=dev).prepare_all(k)
+        t2 = time.perf_counter()
+        vals, docs = mb.run()
+        fetched.append(torch.stack([vals.view(torch.int32), docs]).cpu().numpy())
+        t3 = time.perf_counter()
+        prep_ms.append((t2 - t1) * 1e3)
+        run_ms.append((t3 - t2) * 1e3)
+        if r == 0:
+            key, kept = mb.fused_key(), (vals, docs)
+            entry, size = B._FUSED_CACHE[key], len(B._FUSED_CACHE)
+        elif mb.fused_key() != key or B._FUSED_CACHE.get(key) is not entry \
+                or len(B._FUSED_CACHE) != size:
+            raise AssertionError(f"serving request {r + 1}: not a hit of request 1's entry")
+    total = time.perf_counter() - t_all
+    # replays of one graph: docs equal, scores within rtol 1e-5 (a fold's
+    # scatter-adds sum in no fixed order)
+    np.testing.assert_array_equal(fetched[0][1], fetched[-1][1])
+    np.testing.assert_allclose(fetched[0][0].view(np.float32), fetched[-1][0].view(np.float32),
+                               rtol=1e-5, atol=0.0)
+    again = torch.stack([kept[0].view(torch.int32), kept[1]]).cpu().numpy()
+    if not np.array_equal(again, fetched[0]):
+        raise AssertionError("serving: request 1's tensors changed under later replays")
+    n = SERVE_REQUESTS * len(tasks)
+    print(f"serving: {SERVE_REQUESTS} requests of {len(tasks)} queries, each a fresh "
+          f"QueryBatch.prepare_all({k}).run() fetched; {SERVE_REQUESTS - 1} of "
+          f"{SERVE_REQUESTS} hit request 1's fused entry (no capture); request 1 prepare "
+          f"{prep_ms[0]:.4f} ms, run {run_ms[0]:.4f} ms (capture included); requests 2-"
+          f"{SERVE_REQUESTS} prepare {[round(x, 4) for x in prep_ms[1:]]} ms, run "
+          f"{[round(x, 4) for x in run_ms[1:]]} ms; end to end {n / total:.1f} QPS over all "
+          f"{SERVE_REQUESTS} ({total:.4f} s), "
+          f"{(n - len(tasks)) / (sum(prep_ms[1:]) + sum(run_ms[1:])) * 1e3:.1f} QPS over "
+          f"requests 2-{SERVE_REQUESTS}, on {kind} ({smi})")
 
 
 def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
@@ -1489,16 +1657,14 @@ def serve_ingested(torch, reader, term, scorer, k, dev, smi, kind):
     torch.cuda.synchronize()
     for s, p in enumerate(mb.preps):
         print(f"  ingested segment {s}: groups per tier {dict(Counter(c[0] for c in p.calls))}")
-    kb.reset_launch_counts()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        vals_t, docs_t = mb.run()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    first, (vals_t, docs_t), _entry, _stats = first_fused(torch, mb.run, mb.fused_key(),
+                                                          "ingested index pass", smi)
     packed = torch.stack([vals_t.view(torch.int32), docs_t]).cpu().numpy()
     launches = kb.launch_counts()
     vals, docs = packed[0].view(np.float32), packed[1]
     print(f"ingested index pass: enqueued with no synchronise; launches {launches}")
+    same_results(torch, [first], [(vals_t, docs_t)], "ingested pass: first and second fused run")
+    same_results(torch, [(vals_t, docs_t)], [mb.run(fused=False)], "ingested pass: fused and eager")
     for name in ("dense_scan_rowmax", "dma_row_slices", "decode_score_rows"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched over the ingested index")
@@ -1533,13 +1699,7 @@ def serve_ingested(torch, reader, term, scorer, k, dev, smi, kind):
     print(f"ingested oracle (HostQuery over the written index): {sum(seen.values())} queries "
           f"{dict(seen)} pass the exactness gate; no deleted doc in any of the "
           f"{len(tasks)} results; the removed term matches nothing (queries {sorted(gone)})")
-    mb.run()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(PASSES):
-        mb.run()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t1) * 1e3 / PASSES
+    ms = pass_ms(torch, mb.run)
     prof = profile_passes(torch, mb.run, os.path.join(REPO, ".bench_cache", "ingest_profile.txt"),
                           kind, smi)
     print(f"ingested index passes: {PASSES} x {len(tasks)} queries, {ms:.4f} ms/pass -> "
@@ -1959,9 +2119,9 @@ def main() -> int:
         return 0
 
     t0 = time.perf_counter()
-    kb.reset_launch_counts()
     prep = QueryBatch(filters, [sr], scorer, wand=True, device=dev).prepare(0, k)
-    grouped = prep.run_grouped()
+    first, grouped, _entry, _stats = first_fused(torch, prep.run_grouped, prep._key,
+                                                 "main path", smi)
     torch.cuda.synchronize()
     launches = kb.launch_counts()
     tiers = Counter(c[0] for c in prep.calls)
@@ -1976,26 +2136,30 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on the main path")
     if set(tiers) != {"skyline", "dslice", "scan"}:
         raise AssertionError(f"tiers {dict(tiers)}: expected all three")
+    strip = lambda g: [pair for pair, _q in g]  # noqa: E731
+    # the one-segment mix has no fold group: every score is bit-stable
+    same_results(torch, strip(first), strip(grouped), "main path: first and second fused run",
+                 exact=True)
+    same_results(torch, strip(grouped), strip(prep.run_grouped(fused=False)),
+                 "main path: fused and eager", exact=True)
+    plain = prep.run_grouped(plain=True)
+    same_results(torch, strip(grouped), strip(plain), "main path: fused and plain", exact=True)
     vals, docs = per_query(grouped, len(tasks))
-    pvals, pdocs = per_query(prep.run_grouped(plain=True), len(tasks))
+    pvals, pdocs = per_query(plain, len(tasks))
     for qi in range(len(tasks)):
         np.testing.assert_array_equal(docs[qi], pdocs[qi])
         np.testing.assert_allclose(vals[qi], pvals[qi], rtol=1e-5, atol=0.0)
-    print(f"main path vs plain-torch run: {len(tasks)} queries match")
+    print(f"main path: the fused pass equals the eager pass and the plain-torch run bit for "
+          f"bit on all {len(tasks)} queries")
     check_oracle(vals, docs, tasks, sr, scorer, k)
     phase("6 main path", t0)
 
     t0 = time.perf_counter()
-    prep.run_grouped()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(PASSES):
-        prep.run_grouped()
-    torch.cuda.synchronize()
-    el = time.perf_counter() - t1
-    qps = PASSES * len(tasks) / el
-    print(f"batched passes: {PASSES} x {len(tasks)} queries in {el:.4f} s "
-          f"-> {qps:.1f} QPS on {kind} ({smi})")
+    both_ways(torch, prep.run_grouped, len(tasks), "batched passes", smi, kind)
+    if args.profile:
+        for fused in (True, False):
+            profile_passes(torch, lambda: prep.run_grouped(fused=fused),
+                           f"{args.profile}.one.{'fused' if fused else 'eager'}", kind, smi)
     phase("7 timing", t0)
 
     t0 = time.perf_counter()
@@ -2003,6 +2167,12 @@ def main() -> int:
     tier_prep, tier_tasks = tier_batch(sr, scorer, k, dev)
     tier_launches = run_tiers(torch, tier_prep, tier_tasks, sr, scorer, k, smi)
     print(f"launches over the {len(tier_tasks)} tier calls: {dict(tier_launches)}")
+    tier_first, tier_second, _entry, _stats = first_fused(
+        torch, tier_prep.run_grouped, tier_prep._key, "tier batch", smi)
+    for got, what in ((tier_first, "first"), (tier_second, "second")):
+        same_results(torch, strip(got), strip(tier_prep.run_grouped(fused=False)),
+                     f"tier batch: {what} fused run and eager")
+    print("tier batch: every tier's group captured and replayed in one graph")
     check_gather(torch, tier_prep, kern, floor, smi)
     phase("8 breadth and tiers", t0)
 
@@ -2024,6 +2194,7 @@ def main() -> int:
     print(f"index segments ready in {time.perf_counter() - t0:.3f} s")
     index_launches, merged = run_index(torch, srs, tasks, scorer, k, dev, smi, kind,
                                        args.profile)
+    run_serving(torch, srs, tasks, scorer, k, dev, smi, kind)
     phase("10 index", t0)
 
     t0 = time.perf_counter()

@@ -21,15 +21,25 @@ A plan's on-device phrase rows (``device_aux``, ``exec/phrase.py``) are
 computed on the first run and kept with the call's other inputs (the
 keys form of those rows runs in ``parallel/sharded.py``);
 ``prepare_all`` merges the segments' results on the device
-(``exec/segmerge.py``). Every call's inputs are uploaded once at
-``prepare``; ``run`` only launches work. A batched runner splits the query axis into chunks by a
-lane budget (``_chunked``, the counterpart of ``_chunked_vmap``).
+(``exec/segmerge.py``). A batched runner splits the query axis into chunks
+by a lane budget (``_chunked``, the counterpart of ``_chunked_vmap``).
+
+What the host makes for a batch is uploaded once, at ``prepare``, in one
+packed buffer (``_pack_args``). ``PreparedBatch.run_grouped`` and
+``MergedBatch.run`` then run a whole pass as one CUDA graph, kept in a
+global LRU cache by the batch's structure (``_FUSED_CACHE``, at most
+``IRS_FUSED_CACHE_MAX`` entries, ``clear_fused_cache``), as the JAX
+package runs one jitted program; ``fused=False`` runs the groups eagerly.
 """
 
 from __future__ import annotations
 
-from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+import contextlib
+import os
+import threading
+import time
+from collections import OrderedDict, defaultdict
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +61,7 @@ from iresearch_tpu_torch.exec.skyline import skyline_spec, skyline_topk_batch
 from iresearch_tpu_torch.formats.bitpack import BITS
 from iresearch_tpu_torch.formats.spec import BLOCK
 from iresearch_tpu_torch.index.segment import _pow2, device_state
+from iresearch_tpu_torch.kernels import build as kb
 from iresearch_tpu_torch.ops.dense_scan import score_rows
 from iresearch_tpu_torch.ops.topk import _IMAX32, topk_docs
 from iresearch_tpu_torch.search import filters as F
@@ -95,6 +106,18 @@ def _dense_args(dense_shared, ddyn):
     return tuple(
         (sh[0], dd[0], dd[1], sh[1], sh[2]) + tuple(dd[2:])
         for sh, dd in zip(dense_shared, ddyn)
+    )
+
+
+def _stack_dense_dyn(dense_dyn):
+    """Each WAND span's per-plan block upper bounds (``_dense_ub``, kept
+    in ``plan.cache``) stacked to [Q, ndrows] inside the pass
+    (``exec/batch.py:_stack_dense_dyn``); a span whose bounds came
+    stacked already (the sharded executor's) stays as it is."""
+    return tuple(
+        dd[:2] + (torch.stack(dd[2]),) + dd[3:]
+        if len(dd) > 2 and type(dd[2]) is tuple else dd
+        for dd in dense_dyn
     )
 
 
@@ -173,6 +196,7 @@ def _run_wand(
     *, tree, gbits, scorer, num_leaves, k, nd, sample, wand_mode, dense_static,
 ):
     """Block-max WAND with per-query θ (``exec/batch.py:_run_batch_wand``)."""
+    dense_dyn = _stack_dense_dyn(dense_dyn)
 
     def one(xs):
         rs, lm, dd = xs
@@ -193,6 +217,7 @@ def _run_candidates(
     dense_dyn, *, mode, driver_gi, nd, num_leaves, **kw,
 ):
     """The scale-proportional tiers (``exec/batch.py:_run_batch_candidates``)."""
+    dense_dyn = _stack_dense_dyn(dense_dyn)
 
     def one(xs):
         rs, lm, nr, dd = xs
@@ -291,7 +316,9 @@ def group_call(
     *, sky_specs, sky_M, wand_sample: int, wand_mode: str, single: bool,
 ):
     """(tier, runner, args, kwargs) for plans ``reps`` that share a
-    stacking signature, with their inputs uploaded to ``device``;
+    stacking signature. The args hold the segment's tensors on ``device``
+    and, for what the host makes per call (rows, starts, weights, avgdl),
+    numpy arrays, which ``_pack_args`` uploads in one copy; then
     ``runner(KERNELS or PLAIN, *args, **kwargs)`` -> (vals [Q, k'],
     docs [Q, k']). The tier dispatch of ``QueryBatch.prepare`` and, with
     ``single=True`` and one plan, of ``DeviceQuery.execute_segment_async``."""
@@ -301,7 +328,7 @@ def group_call(
     nd = p0.nd_pad
 
     def up(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+        return np.ascontiguousarray(a, dtype)
 
     if sky_M is not None:
         s0 = sky_specs[0]
@@ -395,10 +422,10 @@ def group_call(
             up([p.dense_spans[di].w for p in reps], np.float32),
         )
         if use_wand:
-            # the per-plan uploads stacked to [Q, ndrows] on the device
-            # (``exec/batch.py:_stack_dense_dyn``)
+            # the per-plan uploads, stacked to [Q, ndrows] by the runner
+            # inside the pass (``_stack_dense_dyn``)
             dd += (
-                torch.stack([_dense_ub(p, di, device) for p in reps]),
+                tuple(_dense_ub(p, di, device) for p in reps),
                 up([p.dense_spans[di].other for p in reps], np.float32),
             )
         dense_dyn.append(dd)
@@ -534,6 +561,234 @@ def _scan_call(st, sr, dkeys, reps, k, scan_mode, scorer, up):
     return ("scan", _run_scan, args, kwargs)
 
 
+# --- the fused pass ----------------------------------------------------------
+#
+# The counterpart of the JAX package's fused program (``exec/batch.py``,
+# ``_FUSED_CACHE`` .. ``PreparedBatch.run_grouped``): there one jitted
+# program runs every group of a batch, cached globally by the batch's
+# static structure because serving creates a fresh batch per request. Here
+# that program is a CUDA graph: captured once per structure, replayed with
+# one launch, its host-made inputs read from one packed buffer of which the
+# cache entry keeps its own copy.
+
+_ALIGN = 256  # bytes: every packed section starts on the allocator's alignment
+
+
+class _Packed(NamedTuple):
+    """Template leaf: a host array's section of the packed buffer."""
+
+    off: int  # bytes
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+class _Dev(NamedTuple):
+    """Template leaf: the batch's ``i``-th long-lived object (a segment's
+    pool or norms, a ``plan.cache`` upload, a phrase-rows callable)."""
+
+    i: int
+
+
+def _pack_args(trees, device):
+    """(templates, buffer, dev_args): every numpy array in the arg trees
+    ``trees`` (tuples of arrays, tensors and static values) moved into one
+    uint8 buffer on ``device``, each section ``_ALIGN``-byte aligned (the
+    kernels' vector loads need 16), filled in pinned host memory and
+    uploaded in one non-blocking copy (``exec/batch.py:_pack_args``). The
+    templates mirror the trees with ``_Packed`` leaves for the arrays and
+    ``_Dev`` leaves for the tensors and callables, which are not copied and
+    are listed once each in ``dev_args``; other leaves stay as they are."""
+    parts, dev_args, dev_index = [], [], {}
+    size = 0
+
+    def place(x):
+        nonlocal size
+        if isinstance(x, np.ndarray):
+            a = np.ascontiguousarray(x)
+            parts.append((size, a))
+            leaf = _Packed(size, a.shape, torch.from_numpy(a[:0]).dtype)
+            size += -(-a.nbytes // _ALIGN) * _ALIGN
+            return leaf
+        if type(x) is tuple:
+            return tuple(place(e) for e in x)
+        if isinstance(x, torch.Tensor) or callable(x):
+            i = dev_index.get(id(x))
+            if i is None:
+                i = dev_index[id(x)] = len(dev_args)
+                dev_args.append(x)
+            return _Dev(i)
+        return x
+
+    templates = [place(t) for t in trees]
+    host = torch.zeros(
+        max(size, _ALIGN), dtype=torch.uint8, pin_memory=device.type == "cuda"
+    )
+    flat = host.numpy()
+    for off, a in parts:
+        flat[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    return templates, host.to(device, non_blocking=True), tuple(dev_args)
+
+
+def _materialize(t, buf, dev_args):
+    """An args tree rebuilt from its template: each ``_Packed`` leaf a
+    typed view of ``buf`` (``exec/batch.py:_materialize``)."""
+    if isinstance(t, _Packed):
+        n = t.dtype.itemsize * int(np.prod(t.shape, dtype=np.int64))
+        return buf[t.off : t.off + n].view(t.dtype).reshape(t.shape)
+    if isinstance(t, _Dev):
+        return dev_args[t.i]
+    if type(t) is tuple:
+        return tuple(_materialize(e, buf, dev_args) for e in t)
+    return t
+
+
+def _template_key(templates, dev_args, buf):
+    """Hashable cache key of a prepared batch (``exec/batch.py:
+    _template_key``): each group's runner, template (the packed sections'
+    offsets, shapes and dtypes; static values) and kwargs, the buffer's
+    size, and for each long-lived tensor what a captured graph reads
+    through it: its address, shape, strides, dtype and device (a callable
+    by its identity, which its cache entry keeps alive)."""
+
+    def dev_key(x):
+        if isinstance(x, torch.Tensor):
+            return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype, x.device)
+        return ("callable", id(x))
+
+    return (
+        tuple((fn, tp, tuple(sorted(kw.items()))) for fn, tp, kw in templates),
+        tuple(dev_key(x) for x in dev_args),
+        buf.numel(),
+    )
+
+
+def _kept(dev_args):
+    """The callables of ``dev_args``: their cache entry keeps them, so
+    that no other object takes their ``id`` in its key."""
+    return tuple(x for x in dev_args if not isinstance(x, torch.Tensor))
+
+
+# global fused-pass cache: serving creates a fresh PreparedBatch per
+# request batch; a batch of the same category mix and row buckets replays
+# the entry's graph. LRU-bounded: a long-lived server with a drifting mix
+# must not keep graphs forever.
+_FUSED_CACHE: "OrderedDict[tuple, _FusedPass]" = OrderedDict()
+_FUSED_CACHE_MAX = int(os.environ.get("IRS_FUSED_CACHE_MAX", "256"))
+_FUSED_LOCK = threading.Lock()
+# one memory pool per card shared by every cached graph: replays run one
+# at a time on the caller's stream and each one's outputs are copied out
+# before the next, so one graph's intermediates may lie where another's
+# were (fused calls from several threads must share that stream)
+_GRAPH_POOLS: Dict[torch.device, tuple] = {}
+
+
+def clear_fused_cache() -> None:
+    """Drop every cached fused pass and free its graph and buffers."""
+    with _FUSED_LOCK:
+        _FUSED_CACHE.clear()
+        _GRAPH_POOLS.clear()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+
+
+def _flat_outputs(outs):
+    """(one uint8 tensor holding every output back to back, its layout)."""
+    layout, off = [], 0
+    for o in outs:
+        if off % o.dtype.itemsize:
+            raise ValueError(f"output {o.dtype} at byte {off}: misaligned")
+        layout.append((off, tuple(o.shape), o.dtype))
+        off += o.numel() * o.dtype.itemsize
+    return torch.cat([o.reshape(-1).view(torch.uint8) for o in outs]), layout
+
+
+def _split_outputs(flat, layout):
+    return [
+        flat[off : off + dt.itemsize * int(np.prod(shape, dtype=np.int64))]
+        .view(dt).reshape(shape)
+        for off, shape, dt in layout
+    ]
+
+
+class _FusedPass:
+    """A cached fused pass: its own copy of the packed buffers and, on the
+    card, the CUDA graph of the pass over that copy, the graph's output
+    buffer, its launches of each kernel per replay (counted at capture)
+    and its node count."""
+
+    def __init__(self, bufs, kept) -> None:
+        self.bufs = tuple(b.clone() for b in bufs)
+        self.kept = kept
+        self.graph = None
+        self.out = self.layout = None
+        self.launches: Dict[str, int] = {}
+        self.nodes = 0
+        self.capture_s = 0.0
+
+    def load(self, bufs) -> None:
+        for dst, src in zip(self.bufs, bufs):
+            dst.copy_(src, non_blocking=True)
+
+    def capture(self, body) -> None:
+        """Run ``body`` once on a side stream as warm-up (it fills the
+        plan and phrase memos, builds the kernels and lets the allocator
+        settle), then capture it into one graph. A failure raises."""
+        dev = self.bufs[0].device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body(self.bufs)
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with kb.counted_apart() as launches:
+                graph.capture_begin(pool=_GRAPH_POOLS.setdefault(
+                    dev, torch.cuda.graph_pool_handle()))
+                try:
+                    out, layout = _flat_outputs(body(self.bufs))
+                    nodes = kb.capture_nodes(side.cuda_stream)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            self.capture_s = time.perf_counter() - t0
+        cur.wait_stream(side)
+        self.graph, self.out, self.layout = graph, out, layout
+        self.launches = {n: c for n, c in launches.items() if c}
+        self.nodes = nodes
+
+    def run(self, body):
+        """The pass's outputs as fresh tensors: the graph replayed and its
+        outputs copied out (the graph's kernels counted as launched), or
+        on the CPU ``body`` over the entry's buffers."""
+        if self.graph is None:
+            return _split_outputs(*_flat_outputs(body(self.bufs)))
+        self.graph.replay()
+        for name, n in self.launches.items():
+            kb.count_launch(name, n)
+        return _split_outputs(self.out.clone(), self.layout)
+
+
+def _run_fused(key, bufs, body, kept=()):
+    """The flat outputs of ``body`` (the pass over buffers like ``bufs``)
+    through the cache entry of ``key``: on a miss a new entry (on the card
+    its graph captured), on a hit ``bufs`` copied into the entry's own."""
+    with _FUSED_LOCK:
+        entry = _FUSED_CACHE.get(key)
+        if entry is None:
+            entry = _FusedPass(bufs, kept)
+            if entry.bufs[0].is_cuda:
+                entry.capture(body)
+            _FUSED_CACHE[key] = entry
+            while len(_FUSED_CACHE) > _FUSED_CACHE_MAX:
+                _FUSED_CACHE.popitem(last=False)
+        else:
+            _FUSED_CACHE.move_to_end(key)
+            entry.load(bufs)
+        return entry.run(body)
+
+
 class QueryBatch:
     """Executes many prepared queries per segment in few batched calls.
 
@@ -624,11 +879,11 @@ class QueryBatch:
                 single=False,
             )
             calls.append((tier, qis, fn, args, kwargs))
-        return PreparedBatch(len(plans), calls)
+        return PreparedBatch(len(plans), calls, self.device)
 
     def prepare_all(self, k: int):
-        """The prepared global batch over every segment: ``run()`` enqueues
-        each segment's groups plus one merge on the device and returns
+        """The prepared global batch over every segment: ``run()`` replays
+        one CUDA graph of each segment's groups plus the merge and returns
         global (vals [Q, k], docs [Q, k]) (``exec/segmerge.py``). One
         ``prepare`` per segment: the JAX package's joint cross-segment
         grouping and padding only serve to share compiled programs."""
@@ -669,33 +924,82 @@ class QueryBatch:
 
 
 class PreparedBatch:
-    """Device-resident stacked batch; ``run`` only launches work."""
+    """Device-resident stacked batch; ``run_grouped`` replays one CUDA
+    graph.
 
-    def __init__(self, num_queries: int, calls) -> None:
+    Every host-made input of every group lies in one packed buffer,
+    uploaded in one copy (``_pack_args``). ``run_grouped()`` runs all the
+    groups as one pass: on the card one CUDA graph, captured the first time
+    a batch of this structure runs and kept in ``_FUSED_CACHE`` under
+    ``_template_key``, so a fresh batch of the same category mix and row
+    buckets only copies its buffer into the entry's and replays; on the
+    CPU the entry's bodies run eagerly over the entry's buffer.
+    ``fused=False`` is the debug path: one eager call per group over the
+    batch's own buffer."""
+
+    def __init__(self, num_queries: int, calls, device) -> None:
         self.num_queries = num_queries
-        self._calls = calls
+        templates, self._buf, self._dev_args = _pack_args(
+            [c[3] for c in calls], entry_device(device)
+        )
+        self._templates = tuple(
+            (fn, tp, kwargs)
+            for (_tier, _qis, fn, _args, kwargs), tp in zip(calls, templates)
+        )
+        self._calls = [
+            (tier, qis, fn, _materialize(tp, self._buf, self._dev_args), kwargs)
+            for (tier, qis, fn, _args, kwargs), tp in zip(calls, templates)
+        ]
+        self._key = _template_key(self._templates, self._dev_args, self._buf)
 
     @property
     def calls(self):
-        """[(tier, query_indices, runner, args, kwargs)] in run order, for
-        checking a kernel at the real shapes (see ``group_call``)."""
+        """[(tier, query_indices, runner, args, kwargs)] in run order, the
+        args over the batch's own packed buffer: the shapes and values the
+        fused pass reads from its entry's copy (for checking a kernel at
+        the real shapes, see ``group_call``)."""
         return list(self._calls)
 
-    def run_grouped(self, plain: bool = False):
+    def _body(self, kern):
+        """``body((buf,))`` -> the flat outputs [vals, docs, vals, ...] of
+        every group, their host-made args read from ``buf``."""
+        templates, dev_args = self._templates, self._dev_args
+
+        def body(bufs):
+            (buf,) = bufs
+            outs = []
+            for fn, tp, kwargs in templates:
+                outs.extend(fn(kern, *_materialize(tp, buf, dev_args), **kwargs))
+            return outs
+
+        return body
+
+    def run_grouped(self, fused: bool = True, plain: bool = False):
         """[((vals [Q, k], docs [Q, k]), query_indices), ...] — one entry per
-        signature group. ``plain=True`` runs the kernels' plain PyTorch
-        versions instead of the kernels (the reference the kernel path is
-        checked against on the card)."""
-        kern = PLAIN if plain else KERNELS
+        signature group, computed in one pass: one CUDA graph replay on the
+        card, the outputs fresh tensors that a later call never overwrites.
+        ``fused=False`` runs the groups one eager call each (the debug
+        path); ``plain=True`` runs the kernels' plain PyTorch versions
+        eagerly (the reference the kernel path is checked against on the
+        card)."""
+        if plain or not fused or not self._calls:
+            kern = PLAIN if plain else KERNELS
+            return [
+                (fn(kern, *args, **kwargs), qis)
+                for _tier, qis, fn, args, kwargs in self._calls
+            ]
+        outs = _run_fused(
+            self._key, (self._buf,), self._body(KERNELS), _kept(self._dev_args)
+        )
         return [
-            (fn(kern, *args, **kwargs), qis)
-            for _tier, qis, fn, args, kwargs in self._calls
+            ((outs[2 * i], outs[2 * i + 1]), c[1])
+            for i, c in enumerate(self._calls)
         ]
 
-    def run(self, plain: bool = False):
+    def run(self, fused: bool = True, plain: bool = False):
         """Per-query (scores [k], local docs [k]) tensors."""
         out = [None] * self.num_queries
-        for (vals, docs), qis in self.run_grouped(plain):
+        for (vals, docs), qis in self.run_grouped(fused, plain):
             for j, qi in enumerate(qis):
                 out[qi] = (vals[j], docs[j])
         return out

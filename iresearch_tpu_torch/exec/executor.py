@@ -304,7 +304,9 @@ def densify_aux(aux_sp, nd: int):
     qix = torch.arange(q, device=dev)[:, None]
     for a, (docs, vals) in enumerate(aux_sp):
         d = torch.where((docs >= 0) & (docs < nd), docs, nd).to(torch.int64)
-        m[qix, a, d] = True
+        # a device tensor of values: a Python scalar would be copied from
+        # the host, which a graph's capture forbids
+        m[qix, a, d] = torch.ones_like(d, dtype=torch.bool)
         s[qix, a, d] = vals
     return m[..., :nd], s[..., :nd]
 
@@ -514,11 +516,13 @@ class DeviceQuery:
         key = ("torch_call", self.device, k, self.wand_sample, self.wand_mode)
         c = plan.cache.get(key)
         if c is None:
-            from iresearch_tpu_torch.exec.batch import group_call, sky_spec
+            from iresearch_tpu_torch.exec.batch import (
+                _materialize, _pack_args, group_call, sky_spec,
+            )
 
             sr = self.prepared.segments[seg_idx]
             sp = sky_spec(plan, sr, self.scorer, min(k, plan.nd_pad))
-            c = group_call(
+            tier, fn, args, kwargs = group_call(
                 sr, [plan], k, self.scorer, self.device,
                 sky_specs=[sp],
                 sky_M=None if sp is None else len(sp.row_ids),
@@ -526,7 +530,9 @@ class DeviceQuery:
                 wand_mode=self.wand_mode,
                 single=True,
             )
-            plan.cache[key] = c
+            # the host-made inputs in one upload; the call runs eagerly
+            (tp,), buf, dev_args = _pack_args([args], self.device)
+            c = plan.cache[key] = (tier, fn, _materialize(tp, buf, dev_args), kwargs)
         return c
 
     def execute_segment_async(self, seg_idx: int, k: int, plain: bool = False):

@@ -22,11 +22,16 @@ the host until the caller fetches the final [Q, k]:
 Global doc ids are ``segment_base + local_doc`` with bases the prefix sum
 of segment doc counts (must stay < 2^31: docs are int32 in both packages).
 
-Without a counterpart here: the JAX package's ``run(fused=...)`` switch,
-its ``_FUSED_CACHE`` / ``clear_fused_cache`` and the cross-segment padding
-of ``prepare_all`` (``_joint_pad``) exist only so that the segments of one
-pass trace into, and share, one compiled XLA program. Eager PyTorch has no
-program to share, and the results do not depend on them.
+``run()`` is one pass: every segment's groups and the merge in one CUDA
+graph, cached in ``exec/batch.py:_FUSED_CACHE`` under ``("segfused",
+(each segment's batch key), k)`` and fed from the batches' packed buffers
+(``fused=False``, the debug path, runs each segment's groups and then the
+merge eagerly). Without a counterpart here: the JAX package's
+cross-segment padding of ``prepare_all`` (``_joint_pad``). It pads every
+segment's groups to the same shapes so that equal-shape segments share one
+compiled program; a graph bakes in each segment's own pool addresses, so
+no two segments could share one, and the padding would only widen the
+groups.
 """
 
 from __future__ import annotations
@@ -36,6 +41,14 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from iresearch_tpu_torch.exec.batch import (
+    KERNELS,
+    _kept,
+    _materialize,
+    _pack_args,
+    _run_fused,
+    entry_device,
+)
 from iresearch_tpu_torch.ops.topk import topk_docs
 
 _NEG_INF = float("-inf")
@@ -99,9 +112,9 @@ class MergedBatch:
     """Prepared multi-segment batch: run() -> global (vals, docs) [Q, k].
 
     Built from one :class:`PreparedBatch` per segment (same queries, same
-    k). ``run()`` enqueues every segment's groups and then the merge; the
-    result stays on the device until fetched. ``device`` is where the
-    prepared batches live (the card when None)."""
+    k). ``run()`` replays one CUDA graph of every segment's groups and the
+    merge; the result stays on the device until fetched. ``device`` is
+    where the prepared batches live (the card when None)."""
 
     def __init__(
         self, preps: Sequence, num_docs: Sequence[int], k: int = None,
@@ -120,34 +133,64 @@ class MergedBatch:
                 f"global doc ids need {total} < 2^31 (docs are int32); "
                 "split the index across shards instead"
             )
-        from iresearch_tpu_torch.exec.executor import entry_device
-
         self.preps = list(preps)
         bases = np.zeros(len(preps), np.int32)
         np.cumsum(np.asarray(num_docs[:-1], np.int64), out=bases[1:])
         gather, row_base = _flat_index(
             np.stack([perm_of(p) for p in self.preps]), bases
         )
-        dev = entry_device(device)
         self.num_queries = self.preps[0].num_queries
-        self._gather = torch.from_numpy(gather).to(dev)
-        self._row_base = torch.from_numpy(row_base).to(dev)
+        (tp,), self._buf, _ = _pack_args([(gather, row_base)], entry_device(device))
+        self._index = tp
+        self._gather, self._row_base = _materialize(tp, self._buf, ())
 
-    def run(self, plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Global (vals [Q, k], docs [Q, k]) on the device: every
-        segment's groups, then the merge, all enqueued without a
-        synchronise. ``plain=True`` runs the kernels' plain PyTorch
-        versions (``PreparedBatch.run_grouped``)."""
-        return self.merge(
-            [g for p in self.preps for g, _qis in p.run_grouped(plain)]
+    def _k(self) -> int:
+        """The merge width: ``k``, or when None the widest group's k
+        (``exec/segmerge.py:MergedBatch.run``)."""
+        if self.k is not None:
+            return self.k
+        return max(kw.get("k", 0) for p in self.preps for _fn, _tp, kw in p._templates)
+
+    def fused_key(self) -> tuple:
+        """This pass's key in ``exec/batch.py:_FUSED_CACHE``."""
+        return ("segfused", tuple(p._key for p in self.preps), self._k())
+
+    def run(self, fused: bool = True, plain: bool = False):
+        """Global (vals [Q, k], docs [Q, k]) on the device, fresh tensors.
+
+        ``fused=True`` (default): one CUDA graph of every segment's groups
+        and the merge, replayed with one launch and cached by the segments'
+        batch keys, so a fresh ``prepare_all`` of the same structure replays
+        it. ``fused=False``: each segment's groups and the merge enqueued
+        eagerly, with no synchronise (the debug path). ``plain=True`` runs
+        the kernels' plain PyTorch versions eagerly."""
+        k = self._k()
+        if plain or not fused:
+            return self.merge(
+                [g for p in self.preps for g, _qis in p.run_grouped(False, plain)],
+                k,
+            )
+        bodies = [p._body(KERNELS) for p in self.preps]
+        index, q = self._index, self.num_queries
+
+        def body(bufs):
+            outs = [o for b, buf in zip(bodies, bufs) for o in b((buf,))]
+            gather, row_base = _materialize(index, bufs[-1], ())
+            return list(_merge_flat(outs[0::2], outs[1::2], gather, row_base, q=q, k=k))
+
+        kept = tuple(x for p in self.preps for x in _kept(p._dev_args))
+        vals, docs = _run_fused(
+            self.fused_key(), tuple(p._buf for p in self.preps) + (self._buf,),
+            body, kept,
         )
+        return vals, docs
 
-    def merge(self, outs) -> Tuple[torch.Tensor, torch.Tensor]:
+    def merge(self, outs, k: int = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The merge alone, on ``outs``: the ``(vals, docs)`` pair of every
-        group of every segment, in ``preps`` order."""
-        k = self.k
+        group of every segment, in ``preps`` order; ``k`` defaults to
+        ``self.k`` or the widest group."""
         if k is None:
-            k = max(v.shape[1] for v, _d in outs)
+            k = self.k if self.k is not None else max(v.shape[1] for v, _d in outs)
         return _merge_flat(
             [v for v, _d in outs], [d for _v, d in outs],
             self._gather, self._row_base, q=self.num_queries, k=k,

@@ -7,11 +7,14 @@ flags, so a stale build is never loaded, and built on first use into
 nothing falls back to another implementation.
 
 Every wrapper adds one to its kernel's launch count where it launches the
-kernel, so a run can show that the main path went through the kernels.
+kernel, so a run can show that the main path went through the kernels. A
+fused pass's graph (``exec/batch.py``) launches the kernels that its
+capture recorded: the capture counts them apart, and each replay adds them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,10 +38,26 @@ KERNELS = (
     "dense_scan_rowmax", "dma_row_slices", "decode_rows", "decode_score_rows",
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_apart: Optional[Dict[str, int]] = None
 
 
-def count_launch(name: str) -> None:
-    _launches[name] += 1
+def count_launch(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of kernel ``name``: one from its wrapper, or a
+    replayed graph's launches of it (``exec/batch.py:_FusedPass``)."""
+    (_launches if _apart is None else _apart)[name] += n
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Count the block's launches into the dict it yields, not into
+    ``launch_counts()``: a graph's capture records its kernels, which run
+    at each replay, where they are counted."""
+    global _apart
+    saved, _apart = _apart, dict.fromkeys(KERNELS, 0)
+    try:
+        yield _apart
+    finally:
+        _apart = saved
 
 
 def launch_counts() -> Dict[str, int]:
@@ -123,9 +142,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P, P, P, P,  # docs, scores, matched, dl, stream
     ]
     lib.irs_noop.argtypes = [P]
+    lib.irs_capture_nodes.argtypes = [P, PLL]
     for fn in (
         lib.irs_dense_scan_rowmax, lib.irs_dma_row_slices,
         lib.irs_decode_rows, lib.irs_decode_score_rows, lib.irs_noop,
+        lib.irs_capture_nodes,
     ):
         fn.restype = ctypes.c_int
     lib.irs_error_string.argtypes = [I]
@@ -162,3 +183,12 @@ def launch_noop(stream: int) -> None:
     handle): what one launch costs the device, for a timing's floor."""
     lib = library()
     check(lib, lib.irs_noop(stream), "noop")
+
+
+def capture_nodes(stream: int) -> int:
+    """The nodes of the CUDA graph being captured on ``stream`` (a raw
+    handle), so far."""
+    lib = library()
+    n = ctypes.c_longlong(0)
+    check(lib, lib.irs_capture_nodes(stream, ctypes.byref(n)), "capture_nodes")
+    return n.value

@@ -753,4 +753,20 @@ int irs_noop(void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The node count of the graph being captured on stream (a fused pass's
+// size: exec/batch.py counts it at capture).
+int irs_capture_nodes(void* stream, long long* nodes) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph = nullptr;
+  cudaError_t e = cudaStreamGetCaptureInfo((cudaStream_t)stream, &status,
+                                           nullptr, &graph);
+  if (e != cudaSuccess) return (int)e;
+  if (status != cudaStreamCaptureStatusActive || graph == nullptr)
+    return (int)cudaErrorStreamCaptureUnmatched;
+  size_t n = 0;
+  e = cudaGraphGetNodes(graph, nullptr, &n);
+  *nodes = (long long)n;
+  return (int)e;
+}
+
 }  // extern "C"

@@ -48,7 +48,12 @@ from iresearch_tpu.store.directory import MemoryDirectory  # noqa: E402
 from iresearch_tpu_torch import bench_mix  # noqa: E402
 from iresearch_tpu_torch.exec import candidates as tc  # noqa: E402
 from iresearch_tpu_torch.exec import executor as tex  # noqa: E402
-from iresearch_tpu_torch.exec.batch import QueryBatch, group_call  # noqa: E402
+from iresearch_tpu_torch.exec.batch import (  # noqa: E402
+    QueryBatch,
+    _materialize,
+    _pack_args,
+    group_call,
+)
 from test_torch_carry import (  # noqa: E402
     Segs,
     both_knobs,
@@ -813,7 +818,8 @@ def _body_dslice_topk(r):
                                         sky_specs=[None], sky_M=None, wand_sample=16,
                                         wand_mode="exact", single=True)
     assert tier == "dslice" and kwargs["R"] == R
-    _same_topk(fn(tex.PLAIN, *args, **kwargs), want)
+    (tp,), buf, dev_args = _pack_args([args], CPU)
+    _same_topk(fn(tex.PLAIN, *_materialize(tp, buf, dev_args), **kwargs), want)
 
 
 @pytest.mark.parametrize("bn", [4, -1], ids=["inline_norms", "norms_gather"])

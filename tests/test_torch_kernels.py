@@ -689,3 +689,138 @@ def test_single_query_dslice_on_card(cuda_device, card_segments):
     np.testing.assert_array_equal(docs, pd)
     np.testing.assert_array_equal(vals, pv)
     assert np.isfinite(vals[0])
+
+
+# --- the fused pass on the card: one CUDA graph per prepared batch ---
+
+
+def _card_batch(card_segments, filters=None, segs=None):
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec.batch import QueryBatch
+
+    if filters is None:
+        filters = [f for _c, f in bench_mix.task_mix(card_segments[0])[::8]]
+    return QueryBatch(filters, segs or card_segments, to_port(BM25()), wand=True)
+
+
+def _agree(got, want):
+    """Two runs' (vals, docs): docs equal, scores to rtol 1e-5 (a fold's
+    float scatter-adds sum in no fixed order on the card, so two runs may
+    differ in the last ulp, ``exec/executor.py``)."""
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+
+
+def _swapped_in_group(prep, filters):
+    """``filters`` with two queries of one group of ``prep`` swapped: a
+    batch of the same structure whose packed rows differ."""
+    a, b = next(qis[:2] for _t, qis, *_r in prep.calls
+                if len(qis) >= 2 and filters[qis[0]] != filters[qis[1]])
+    out = list(filters)
+    out[a], out[b] = out[b], out[a]
+    return out
+
+
+@pytest.mark.cuda
+def test_fused_graph_equals_eager_on_card(cuda_device, card_segments):
+    """``prepare_all(10).run()`` replays one graph of every segment's
+    groups and the merge: the eager pass's and the plain run's result; a
+    replay counts the kernels' launches that the capture recorded."""
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.kernels import build as kb
+
+    B.clear_fused_cache()
+    mb = _card_batch(card_segments).prepare_all(10)
+    vals, docs = mb.run()
+    entry = B._FUSED_CACHE[mb.fused_key()]
+    assert entry.graph is not None and entry.nodes > 0
+    assert entry.launches.get("dense_scan_rowmax") and entry.launches.get("decode_score_rows")
+    _agree((vals, docs), mb.run(fused=False))
+    _agree((vals, docs), mb.run(plain=True))
+    kb.reset_launch_counts()
+    mb.run()
+    torch.cuda.synchronize()
+    assert {n: c for n, c in kb.launch_counts().items() if c} == entry.launches
+    prep = mb.preps[0]
+    for (g, qg), (e, qe) in zip(prep.run_grouped(), prep.run_grouped(fused=False)):
+        assert qg == qe
+        _agree(g, e)
+    B.clear_fused_cache()
+
+
+@pytest.mark.cuda
+def test_fused_hit_does_not_capture_again_on_card(cuda_device, card_segments, monkeypatch):
+    """Fresh batches of one structure: the first captures, the others copy
+    their buffers into its entry and replay."""
+    from iresearch_tpu_torch.exec import batch as B
+
+    B.clear_fused_cache()
+    captures = []
+    real = B._FusedPass.capture
+    monkeypatch.setattr(B._FusedPass, "capture",
+                        lambda self, body: captures.append(self) or real(self, body))
+    first = _card_batch(card_segments).prepare_all(10).run()
+    for _ in range(3):
+        _agree(_card_batch(card_segments).prepare_all(10).run(), first)
+    assert len(captures) == 1 and len(B._FUSED_CACHE) == 1
+    assert next(iter(B._FUSED_CACHE.values())) is captures[0]
+    B.clear_fused_cache()
+
+
+@pytest.mark.cuda
+def test_fused_result_survives_later_replays_on_card(cuda_device, card_segments):
+    """What a fused call returned is not overwritten when the same graph
+    replays for a batch whose results differ."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import batch as B
+
+    B.clear_fused_cache()
+    seg = card_segments[:1]
+    filters = [f for _c, f in bench_mix.task_mix(seg[0])[::8]]
+    prep = _card_batch(card_segments, filters, seg).prepare(0, 10)
+    got = prep.run_grouped()
+    kept = [(v.clone(), d.clone()) for (v, d), _q in got]
+    fresh = _card_batch(card_segments, _swapped_in_group(prep, filters), seg).prepare(0, 10)
+    assert fresh._key == prep._key
+    other = fresh.run_grouped()
+    assert len(B._FUSED_CACHE) == 1
+    assert any(not torch.equal(d, k[1]) for ((_v, d), _q), k in zip(other, kept))
+    for ((v, d), _q), (kv, kd) in zip(got, kept):
+        assert torch.equal(v, kv) and torch.equal(d, kd)
+    for (g, _q), (e, _q2) in zip(other, fresh.run_grouped(fused=False)):
+        _agree(g, e)
+    B.clear_fused_cache()
+
+
+@pytest.mark.cuda
+def test_fused_capture_under_sync_debug_error_on_card(cuda_device, card_segments):
+    """Capture and replay with PyTorch's sync debug mode set to raise: the
+    index pass, and a batch with a query per tier that decodes postings
+    rows (fold, aux, wand, direct, sort, join, gridmix), each agreeing with
+    its eager run."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import batch as B
+
+    B.clear_fused_cache()
+    mb = _card_batch(card_segments).prepare_all(10)
+    tasks = bench_mix.tier_tasks(card_segments[0])
+    qb = _card_batch(card_segments, [f for _t, f, _k in tasks], card_segments[:1])
+    for q, (_t, _f, knobs) in zip(qb.queries, tasks):
+        if knobs:
+            with bench_mix.planner_knobs(**knobs):
+                q.plan(0)
+    tiers = qb.prepare(0, 10)
+    assert [c[0] for c in tiers.calls] == [t for t, _f, _k in tasks]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runs = [(mb.run(), tiers.run_grouped()) for _ in range(2)]  # a miss, then a hit
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eager = mb.run(fused=False)
+    for merged, grouped in runs:
+        _agree(merged, eager)
+        for (g, _q), (e, _q2) in zip(grouped, tiers.run_grouped(fused=False)):
+            _agree(g, e)
+    assert len(B._FUSED_CACHE) == 2
+    B.clear_fused_cache()

@@ -13,15 +13,16 @@ reciprocal square root), so a tie in one is a near-tie in the other:
 against the JAX package docs may then swap inside near-ties
 (``assert_topk_near``); against the port's own host merge they are equal.
 
-Two tests there have no counterpart here:
-``test_fused_pass_equals_per_segment_dispatch`` compares ``run(fused=True)``
-(every segment and the merge traced into one jitted program, kept in
-``_FUSED_CACHE``) with ``run(fused=False)``, and
-``test_equal_shape_segments_share_fused_executable`` checks that equal-shape
-segments stack to one compiled executable (``_joint_pad``). Eager PyTorch
-compiles no program per pass, so the port has neither the switch, the cache
-nor the joint padding; the results they guard are covered by the tests
-below.
+``test_fused_pass_equals_per_segment_dispatch`` holds ``run(fused=True)``
+(every segment's groups and the merge as one pass, kept in
+``_FUSED_CACHE``; one CUDA graph on the card, the entry's bodies run
+eagerly over its copy of the packed buffers on the CPU) against
+``run(fused=False)`` and the JAX ``run(fused=True)``.
+``test_equal_shape_segments_reuse_fused_entry`` is the cache-reuse half of
+``test_equal_shape_segments_share_fused_executable``: a second
+``prepare_all`` finds the same entry. Its other half, one key shared by
+equal-shape segments (``_joint_pad``), has no counterpart: a graph reads
+each segment's own pool addresses, so the port's keys hold them.
 """
 
 import numpy as np
@@ -38,6 +39,7 @@ from iresearch_tpu.index.writer import Field, IndexWriter, IndexWriterOptions  #
 from iresearch_tpu.search import filters as F  # noqa: E402
 from iresearch_tpu.search.scorers import BM25, TFIDF  # noqa: E402
 from iresearch_tpu.store.directory import MemoryDirectory  # noqa: E402
+from iresearch_tpu_torch.exec import batch as tb  # noqa: E402
 from iresearch_tpu_torch.exec import segmerge as tsm  # noqa: E402
 from iresearch_tpu_torch.exec.batch import QueryBatch  # noqa: E402
 from test_torch_carry import carried, to_port  # noqa: E402
@@ -223,3 +225,72 @@ def test_perm_of_inverts_the_group_order(segs):
     order = np.concatenate([np.asarray(qis) for _t, qis, *_r in prep.calls])
     np.testing.assert_array_equal(order[tsm.perm_of(prep)], np.arange(len(order)))
     assert len(prep.calls) > 1
+
+
+@pytest.mark.parametrize("scorer", [BM25(), TFIDF()], ids=["bm25", "tfidf"])
+def test_fused_pass_equals_per_segment_dispatch(segs, scorer):
+    """``run(fused=True)``, every segment's groups and the merge as one
+    pass, equals ``run(fused=False)`` bit for bit and the JAX package's
+    ``MergedBatch.run(fused=True)``; it is cached under ``("segfused",
+    segment keys, k)``, and a fresh ``prepare_all`` of the same queries
+    reuses that entry."""
+    tb.clear_fused_cache()
+    k = 7
+    mb = _port_batch(segs, scorer).prepare_all(k)
+    v1, d1 = mb.run(fused=True)
+    v0, d0 = mb.run(fused=False)
+    assert torch.equal(v1, v0) and torch.equal(d1, d0)
+    fkey = ("segfused", tuple(p._key for p in mb.preps), k)
+    assert mb.fused_key() == fkey and list(tb._FUSED_CACHE) == [fkey]
+    entry = tb._FUSED_CACHE[fkey]
+    v2, d2 = _port_batch(segs, scorer).prepare_all(k).run(fused=True)
+    assert tb._FUSED_CACHE[fkey] is entry and len(tb._FUSED_CACHE) == 1
+    assert torch.equal(v2, v0) and torch.equal(d2, d0)
+    wv, wd = JaxQueryBatch(_filters(), segs.jax, scorer, wand=True).prepare_all(k).run(fused=True)
+    _assert_rows_equal(v1.numpy(), d1.numpy(), np.asarray(wv), np.asarray(wd),
+                       near_ties=isinstance(scorer, TFIDF))
+    tb.clear_fused_cache()
+
+
+def _equal_shape_index():
+    """``tests/test_segmerge.py``'s three near-equal segments: the same
+    200-doc stream each, segment 1 with 24 docs more."""
+    d = MemoryDirectory()
+    with IndexWriter(d, IndexWriterOptions(invert_backend="numpy")) as w:
+        for s in range(3):
+            rng = np.random.default_rng(5)
+            for _i in range(200):
+                n = int(rng.integers(4, 15))
+                idx = np.minimum(rng.zipf(1.4, size=n) - 1, len(WORDS) - 1)
+                w.insert([Field("body", " ".join(WORDS[j] for j in idx),
+                                analyzer="segmentation")])
+            if s == 1:
+                for i in range(24):
+                    w.insert([Field("body", " ".join(WORDS[(i + j) % 6] for j in range(6)),
+                                    analyzer="segmentation")])
+            w.commit()
+    return carried(DirectoryReader.open(d))
+
+
+def test_equal_shape_segments_reuse_fused_entry():
+    """A second ``prepare_all`` of the same queries over the equal-shape
+    index finds the first one's ``("segfused", ...)`` entry, ``is``-identical,
+    and returns the same result as the host merge. Where the JAX package
+    gives the three segments one key, the port gives each its own."""
+    segs = _equal_shape_index()
+    tb.clear_fused_cache()
+    jmb = JaxQueryBatch(_filters(), segs.jax, BM25(), wand=True).prepare_all(7)
+    assert len({p._key for p in jmb.preps}) == 1
+    qb = _port_batch(segs, BM25())
+    mb = qb.prepare_all(7)
+    assert len({p._key for p in mb.preps}) == 3
+    first = mb.run()
+    entry = tb._FUSED_CACHE[mb.fused_key()]
+    mb2 = _port_batch(segs, BM25()).prepare_all(7)
+    assert mb2.fused_key() == mb.fused_key()
+    second = mb2.run()
+    assert tb._FUSED_CACHE[mb.fused_key()] is entry and len(tb._FUSED_CACHE) == 1
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for g, r in zip(mb2.search(7), qb.search(7)):
+        assert [d for d, _v in g] == [d for d, _v in r]
+    tb.clear_fused_cache()
