@@ -55,14 +55,26 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    plain-torch run and against ``HostQuery``; K1 is held bit for bit
    against its plain version on every fused-scan category (four spans,
    min_match 2 among them), and both forms of K3 on the rows that a fold
-   group and a join group really gather, and timed as in phase 5;
-   synchronised ms per query are printed for every category and tier;
+   group and a join group really gather, and timed as in phase 5. Every
+   single query runs fused (one CUDA graph per call signature,
+   ``exec/batch.py:SingleCall``: its first run captured under the sync
+   debug mode, as in phase 6, then a hit) and eager, the two held against
+   each other; then one single query per tier
+   (``bench_mix.single_tier_tasks``: skyline, scan, dslice, fold, aux,
+   wand, direct, sort, join, gridmix) the same way, and for each a fresh
+   ``DeviceQuery`` of another filter with the same signature (its terms
+   moved by df rank, ``same_band``) must hit the first one's entry with
+   no capture and give its own eager result; synchronised ms per query
+   fused and eager, the miss and capture ms and the graph's nodes are
+   printed for every category and tier;
 9. phrases on the device, on the same segment: the single query's default
    (``device_phrase=True``, ``exec/phrase.py``) for ``bench.py``'s Phrase,
    a three-term phrase with a gap, and the phrase under And and Or with a
-   term. Each plan must carry a ``device_aux`` row and its first run must
-   launch K3's plain form once per phrase part (the rows are then kept
-   with the plan); the result is held against the plain-torch run (docs
+   term. Each plan must carry a ``device_aux`` row, and making its rows
+   (once, before the fused call's first replay, which copies them into its
+   entry) must launch K3's plain form once per phrase part; fused and
+   eager as in phase 8, with a fresh phrase of the same signature that
+   must hit; the result is held against the plain-torch run (docs
    equal, scores rtol 1e-5), against ``device_phrase=False`` (the host
    evaluation) and against ``HostQuery``; K3's plain form is held bit for
    bit against its plain version on the parts' rows and timed as in phase
@@ -95,17 +107,23 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
 12. the sharded executor over phase 10's index (``parallel/sharded.py``;
    one process holds all three segments): the 400-query mix through
    ``ShardedSearcher(segments, device=dev).prepare_many(mix, wand=True,
-   k_max=10).run(10)``, every segment at the global ``nd_pad``. The pass is
-   enqueued with no synchronise and fetched once; K3's scored form must
-   launch and every wrapper call of the pass is held bit for bit against
-   its plain version; the result is held against the plain-torch run
-   (docs equal, scores rtol 1e-5), against phase 10's ``prepare_all`` and
-   25 queries of the numpy oracle (the exactness gate). Two phrases
+   k_max=10).run(10)``, every segment at the global ``nd_pad``, one CUDA
+   graph per signature group. The first pass captures every group under
+   the sync debug mode (per group its miss and capture ms, nodes,
+   launches per replay and bytes), the second only replays, with no
+   synchronise, and is fetched once; K3's scored form must launch and
+   every wrapper call of the pass is held bit for bit against its plain
+   version; the result is held against the eager pass and the plain-torch
+   run (docs equal, scores rtol 1e-5), against phase 10's ``prepare_all``
+   and 25 queries of the numpy oracle (the exactness gate). Two phrases
    (``bench.py``'s Phrase and three terms with a gap) must plan to
-   ``PhraseKeysSpec`` rows and run in the keys form, against plain and the
-   oracle. Prints S, D, per_shard, nd_pad, the uniform dense layout's
-   eligible terms, stride and device bytes, the tier and query count per
-   group, the prepare seconds, QPS over one loop of 20 passes and
+   ``PhraseKeysSpec`` rows and run in the keys form, against eager, plain
+   and the oracle. Then ``SHARDED_REQUESTS`` fresh ``prepare_many``
+   requests on an empty cache: every group of every request after the
+   first must hit. Prints S, D, per_shard, nd_pad, the uniform dense
+   layout's eligible terms, stride and device bytes, the tier and query
+   count per group, the prepare seconds, ms and QPS of fused and eager
+   passes in turns, the serving requests' prepare and run ms and
    synchronised ms for one query through ``prepare``;
 13. ingest on the card: phase 10's second segment rebuilt as text (seed 43,
    1,250,000 docs; doc ``d`` is ``b"t%06d"`` of its token ids joined by
@@ -139,7 +157,9 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    bit against the kernels' plain versions. ``cli dump`` runs as a
    subprocess, and ``pyresearch`` reads the index as the reader does.
    Prints docs/s of the put, each flush's ``invert_device`` seconds, the
-   consolidate seconds and per-category average µs of both engines;
+   consolidate seconds, the device engine's fused-cache misses and hits
+   (on an empty cache), per-category average µs of both engines and of
+   the device tasks again eager and fused;
 15. ``train_supervised`` on the card at AG News' shape (120,000 docs of
    the ``bench_mix`` corpus of seed 45, 4 labels, the module defaults:
    dim 16, 120 epochs, 2^15 buckets): the loss must fall and the training
@@ -154,7 +174,9 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    device="cuda")``: two processes of one ``gloo`` group on the one card,
    each holding 4 of the 8 segments of the JAX dryrun's 1,536 docs; both
    must print ``MULTIHOST_OK`` (exact parity with the host oracle, no
-   ``jax`` or ``iresearch_tpu`` module loaded) and their launches.
+   ``jax`` or ``iresearch_tpu`` module loaded), their launches and a
+   captured graph of their local part per signature group
+   (``MULTIHOST_FUSED``; the ``all_gather`` runs after the replay).
 
 The port and this script import nothing of ``jax`` or of the JAX package
 ``iresearch_tpu``; the run fails if either was loaded.
@@ -162,10 +184,11 @@ The port and this script import nothing of ``jax`` or of the JAX package
 It prints one JSON line of per-kernel results (``launches`` counts, each
 with the counts reset just before it: the replayed 400-query pass of
 phase 6 (a graph replay counts the launches its capture recorded), the
-tier batch of phase 8, the first runs of
-phase 9's queries, the replayed index pass of phase 10, the sharded
-pass of phase 12, the replayed pass over phase 13's written index, phase
-14's device search and phase 16's workers), then, as its last line, ``{"ok": true,
+tier batch of phase 8, one replay of each tier's single query, the rows
+and one replay of phase 9's queries, the replayed index pass of phase
+10, one replayed sharded pass of phase 12, the replayed pass over phase
+13's written index, phase 14's device search and phase 16's workers),
+then, as its last line, ``{"ok": true,
 "device": {...}}``. Any failure raises: the exit code is not 0 and the
 last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
 N`` runs a smaller corpus while debugging, ``--ingest-docs N`` a smaller
@@ -180,6 +203,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import dataclasses
 import io
 import json
 import os
@@ -205,7 +230,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PER_CATEGORY_ORACLE = 5
 PASSES = 20  # timed batched passes
-SHARDED_PASSES = 5  # timed sharded passes (2-3 s each: cut from 20 to make room for phases 14-16)
+# timed sharded passes each way (eager 2-3 s each: cut from 20 to 5 to make
+# room for phases 14-16, then to 3 when the fused passes and 5 serving
+# requests joined phase 12)
+SHARDED_PASSES = 3
+SHARDED_REQUESTS = 5  # fresh prepare_many requests served in phase 12
 SINGLE_REPS = 20  # timed runs per breadth category and tier (bench.py's 20)
 GRAPH_INNER = 10  # copies of a call list in one captured graph
 GRAPH_REPLAYS = 20  # timed replays of that graph
@@ -893,7 +922,7 @@ def sync_ms(torch, fn, reps=SINGLE_REPS):
     return (time.perf_counter() - t1) * 1e3 / reps
 
 
-def first_fused(torch, run, key, what, smi):
+def first_fused(torch, run, kind, key, what, smi):
     """The first run of a fused pass (``exec/batch.py``: warm-up, capture,
     one replay), with PyTorch's sync debug mode set to raise, then a
     second run (a cache hit: one replay) under the same mode with the
@@ -905,7 +934,8 @@ def first_fused(torch, run, key, what, smi):
     from iresearch_tpu_torch.exec import batch as B
     from iresearch_tpu_torch.kernels import build as kb
 
-    if key in B._FUSED_CACHE:
+    cache = B._FUSED_KINDS[kind]
+    if key in cache:
         raise AssertionError(f"{what}: the fused pass was captured before")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -919,19 +949,19 @@ def first_fused(torch, run, key, what, smi):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t1) * 1e3
     torch.cuda.empty_cache()
-    entry = B._FUSED_CACHE[key]
+    entry = cache[key]
     stats = dict(first_ms=first_ms, capture_ms=entry.capture_s * 1e3, nodes=entry.nodes,
                  launches_per_replay=dict(entry.launches),
                  reserved_bytes=torch.cuda.memory_reserved() - r0,
                  allocated_bytes=torch.cuda.memory_allocated() - a0)
-    n = len(B._FUSED_CACHE)
+    n = len(cache)
     kb.reset_launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
         second = run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    if len(B._FUSED_CACHE) != n or B._FUSED_CACHE[key] is not entry:
+    if len(cache) != n or cache[key] is not entry:
         raise AssertionError(f"{what}: the second run captured again")
     print(f"{what} fused: first run (warm-up, capture under the sync debug mode set to "
           f"raise, one replay) {first_ms:.4f} ms, of it capture {stats['capture_ms']:.4f} ms "
@@ -975,33 +1005,176 @@ def pass_ms(torch, fn, passes=PASSES):
     return (time.perf_counter() - t1) * 1e3 / passes
 
 
-def both_ways(torch, run, n_queries, what, smi, kind):
+def both_ways(torch, run, n_queries, what, smi, kind, passes=PASSES):
     """Pass ms and QPS of ``run(fused=True)`` and ``run(fused=False)``, in
-    turns (fused, eager, eager, fused), over ``PASSES`` passes each."""
+    turns (fused, eager, eager, fused), over ``passes`` passes each."""
     ms = {True: [], False: []}
     for fused in (True, False, False, True):
-        ms[fused].append(pass_ms(torch, lambda: run(fused=fused)))
-    for fused, name in ((True, "fused (one graph replay)"), (False, "eager (fused=False)")):
-        print(f"{what} {name}: {PASSES} passes x {n_queries} queries, "
+        ms[fused].append(pass_ms(torch, lambda: run(fused=fused), passes))
+    for fused, name in ((True, "fused (graph replays)"), (False, "eager (fused=False)")):
+        print(f"{what} {name}: {passes} passes x {n_queries} queries, "
               f"{[round(x, 4) for x in ms[fused]]} ms/pass -> "
               f"{[round(n_queries / x * 1e3, 1) for x in ms[fused]]} QPS on {kind} ({smi})")
     return ms
 
 
-def run_breadth(torch, sr, scorer, k, dev, smi):
-    """Phase 8a: the single-query executor over bench.py's breadth
-    categories. Phrase has a phase of its own (9); PrefixHot is left out
-    because bench.py reports it apart."""
+_RANKS = {}  # per segment: body term -> df rank
+
+
+def same_band(flt, sr, d, only=None):
+    """``flt`` with its body terms of df rank r replaced by the terms of
+    rank r + d: every term, or only the ``only``-th met in the filter's
+    fields in order (a query of the same kind, whose plan may share its
+    signature). None where a rank would fall below 0."""
+    from iresearch_tpu_torch import bench_mix
+
+    term_at = bench_mix._ranked(sr)[0]
+    if sr.serial not in _RANKS:
+        fp = sr.data.fields["body"]
+        order = np.argsort(-fp.entries[:, 0].astype(np.int64))
+        tv = sr.terms("body")
+        _RANKS[sr.serial] = {tv[int(t)]: r for r, t in enumerate(order)}
+    ranks = _RANKS[sr.serial]
+    seen = [0]
+
+    def shift(x):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            changes = {}
+            for f in dataclasses.fields(x):
+                v = getattr(x, f.name)
+                if f.name == "term" and isinstance(v, bytes) and v in ranks:
+                    i, seen[0] = seen[0], seen[0] + 1
+                    if only is None or i == only:
+                        if ranks[v] + d < 0:
+                            raise IndexError(v)
+                        changes[f.name] = term_at(ranks[v] + d).encode()
+                else:
+                    nv = shift(v)
+                    if nv is not v:
+                        changes[f.name] = nv
+            if not changes:
+                return x
+            # the filters' own constructors take other arguments than
+            # their fields: a copy with the fields set
+            out = copy.copy(x)
+            for name, v in changes.items():
+                object.__setattr__(out, name, v)
+            return out
+        if isinstance(x, tuple):
+            out = tuple(shift(e) for e in x)
+            return out if any(a is not b for a, b in zip(out, x)) else x
+        return x
+
+    try:
+        return shift(flt)
+    except IndexError:
+        return None
+
+
+def single_query(sr, flt, scorer, dev, wand=False, knobs=None, device_phrase=True):
+    """A ``DeviceQuery`` on ``dev``, its plan compiled under ``knobs``."""
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.exec.executor import DeviceQuery
+
+    dq = DeviceQuery(flt, [sr], scorer, wand=wand, device_phrase=device_phrase, device=dev)
+    if knobs:
+        with bench_mix.planner_knobs(**knobs):
+            dq.plan(0)
+    return dq
+
+
+def single_both_ways(torch, dq, k, what, smi):
+    """A single query's fused call (``exec/batch.py:SingleCall``): its first
+    run through ``first_fused`` (a miss: warm-up, capture, replay), then a
+    hit; both held against the eager run (``fused=False``). Where an
+    earlier query of the same signature made the entry, both runs are hits
+    (under the sync debug mode set to raise) and the stats that entry's.
+    Returns (the second run's result, the launches of its one replay, the
+    stats, ms a query fused and eager)."""
+    from iresearch_tpu_torch.exec import batch as B
     from iresearch_tpu_torch.kernels import build as kb
+
+    key = dq.single_call(0, k).fused_entry()[0]
+    entry = B._FUSED_KINDS["single"].get(key)
+    if entry is None:
+        first, second, _entry, stats = first_fused(
+            torch, lambda: dq.execute_segment_async(0, k), "single", key, what, smi)
+    else:
+        hits = entry.hits
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            first = dq.execute_segment_async(0, k)
+            kb.reset_launch_counts()
+            second = dq.execute_segment_async(0, k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if entry.hits != hits + 2:
+            raise AssertionError(f"{what}: not a hit of the entry an earlier query made")
+        stats = dict(first_ms=float("nan"), capture_ms=entry.capture_s * 1e3, nodes=entry.nodes)
+        print(f"{what} fused: a hit of the entry an earlier query of the same signature "
+              f"made ({entry.nodes} graph nodes), twice")
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in kb.launch_counts().items() if c}
+    eager = dq.execute_segment_async(0, k, fused=False)
+    same_results(torch, [first, second], [eager, eager], f"{what}: fused runs and eager")
+    ms = {f: sync_ms(torch, lambda: dq.execute_segment_async(0, k, fused=f)) for f in (True, False)}
+    return second, launches, stats, ms
+
+
+FRESH_SHIFTS = 24  # df-rank shifts tried each way for a query of the same signature
+
+
+def fresh_hit(torch, sr, flt, make, k, what):
+    """A fresh ``DeviceQuery`` (``make(filter)``) of ``flt`` with its terms
+    moved by df rank (``same_band``: all of them, or one) that has the
+    fused key of ``flt``'s call and another eager result: its fused call
+    must hit that entry (no capture) and give its own eager result.
+    Returns the shift (d, which term)."""
+    from iresearch_tpu_torch.exec import batch as B
+
+    first = make(flt).single_call(0, k)
+    key = first.fused_entry()[0]
+    cache = B._FUSED_KINDS["single"]
+    entry = cache[key]
+    docs = first.fn(B.KERNELS, *first.args, **first.kwargs)[1][0]
+    nterms = repr(flt).count("term=b'")
+    shifts = [(d * sign, only) for d in range(1, FRESH_SHIFTS + 1) for sign in (1, -1)
+              for only in [None] + list(range(nterms) if nterms > 1 else [])]
+    for d in shifts:
+        other = same_band(flt, sr, *d)
+        if other is None or other == flt:
+            continue
+        dq = make(other)
+        call = dq.single_call(0, k)
+        if call.fused_entry()[0] != key:
+            continue
+        eager = dq.execute_segment_async(0, k, fused=False)
+        if torch.equal(eager[1], docs):
+            continue
+        hits, n = entry.hits, len(cache)
+        got = dq.execute_segment_async(0, k)
+        if entry.hits != hits + 1 or len(cache) != n or cache.get(key) is not entry:
+            raise AssertionError(f"{what}: a fresh query of the same signature did not hit")
+        same_results(torch, [got], [eager],
+                     f"{what}: fresh query (df ranks {d[0]:+d} of term {d[1]}), a hit, and its eager run")
+        return d
+    raise AssertionError(f"{what}: no query of the same signature within {FRESH_SHIFTS} df ranks")
+
+
+def run_breadth(torch, sr, scorer, k, dev, smi):
+    """Phase 8a: the single-query executor over bench.py's breadth
+    categories, each call fused (a graph per call signature) and eager.
+    Phrase has a phase of its own (9); PrefixHot is left out because
+    bench.py reports it apart."""
+    from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.ops import dense_scan as ds
 
     for name, flt, wand in bench_mix.breadth_tasks(sr):
         if name in ("Phrase", "PrefixHot"):
             continue
-        dq = DeviceQuery(flt, [sr], scorer, wand=wand, device=dev)
-        tier, _fn, args, kw = dq.call(0, k)
+        dq = single_query(sr, flt, scorer, dev, wand)
+        call = dq.single_call(0, k)
+        tier, args, kw = call.tier, call.args, call.kwargs
         if tier == "scan":  # K1 on this query's spans, bit for bit
             pools, norms, starts, ws, avgdl_f, _avgdl_t = args
             kk = dict(scorer=kw["scorer"], span_bits=kw["span_bits"],
@@ -1012,18 +1185,49 @@ def run_breadth(torch, sr, scorer, k, dev, smi):
                 raise AssertionError(f"breadth {name}: K1 differs from plain")
             print(f"breadth {name}: K1 bit-exact vs plain on S={len(pools)} spans "
                   f"{kk['span_bits']}, conj={kk['conj']}, mm={kk['mm']}")
-        kb.reset_launch_counts()
-        got = dq.execute_segment_async(0, k)
-        torch.cuda.synchronize()
-        launches = {n: c for n, c in kb.launch_counts().items() if c}
+        got, launches, stats, ms = single_both_ways(torch, dq, k, f"breadth {name}", smi)
         need = expected_kernels(tier, dq.plan_for_k(0, k))
         if not all(launches.get(n) for n in need):
             raise AssertionError(f"breadth {name} ({tier}): launches {launches}, needs {need}")
         hits = check_result(torch, got, dq.execute_segment_async(0, k, plain=True),
                             flt, sr, scorer, k, f"breadth {name}")
-        ms = sync_ms(torch, lambda: dq.execute_segment_async(0, k))
-        print(f"breadth {name:18s} tier {tier:8s} {hits:2d} hits, launches {launches}: "
-              f"{ms:.4f} ms/query synchronised ({SINGLE_REPS} runs) on {smi}")
+        print(f"breadth {name:18s} tier {tier:8s} {hits:2d} hits, launches per replay "
+              f"{launches}: {ms[True]:.4f} ms/query fused, {ms[False]:.4f} eager, synchronised "
+              f"({SINGLE_REPS} runs); miss {stats['first_ms']:.4f} ms (capture "
+              f"{stats['capture_ms']:.4f}), {stats['nodes']} graph nodes on {smi}")
+
+
+def run_single_tiers(torch, sr, scorer, k, dev, smi):
+    """Phase 8c: one single query per tier (``bench_mix.single_tier_tasks``
+    but the phrase, phase 9's), fused and eager, against plain and the
+    oracle; then one fresh ``DeviceQuery`` per tier of another filter with
+    the same signature must hit the first one's entry. Returns the
+    launches of the hits' replays, summed."""
+    from iresearch_tpu_torch import bench_mix
+
+    total = Counter()
+    for tier, (flt, wand, knobs, dp) in bench_mix.single_tier_tasks(sr).items():
+        if tier == "phrase":
+            continue
+        make = lambda f: single_query(sr, f, scorer, dev, wand, knobs, dp)  # noqa: E731
+        dq = make(flt)
+        got_tier = dq.single_call(0, k).tier
+        if got_tier != tier:
+            raise AssertionError(f"single {tier}: the query took the {got_tier} tier")
+        got, launches, stats, ms = single_both_ways(torch, dq, k, f"single {tier}", smi)
+        need = expected_kernels(tier, dq.plan_for_k(0, k))
+        if not all(launches.get(n) for n in need):
+            raise AssertionError(f"single {tier}: launches {launches}, needs {need}")
+        total.update(launches)
+        hits = check_result(torch, got, dq.execute_segment_async(0, k, plain=True),
+                            flt, sr, scorer, k, f"single {tier}")
+        d = fresh_hit(torch, sr, flt, make, k, f"single {tier}")
+        print(f"single {tier:8s} {hits:2d} hits, launches per replay {launches}: "
+              f"{ms[True]:.4f} ms/query fused, {ms[False]:.4f} eager, synchronised "
+              f"({SINGLE_REPS} runs); miss {stats['first_ms']:.4f} ms (capture "
+              f"{stats['capture_ms']:.4f}), {stats['nodes']} graph nodes; a fresh query "
+              f"(df ranks {d[0]:+d} of term {d[1]}) hit on {smi}")
+    return total
 
 
 def tier_batch(sr, scorer, k, dev):
@@ -1094,7 +1298,8 @@ def check_gather(torch, prep, kern, floor, smi):
 
 def run_phrases(torch, sr, scorer, k, dev, smi, kern, floor):
     """Phase 9: phrases through the single query's default
-    (``device_phrase=True``); returns the launches of the first runs."""
+    (``device_phrase=True``), fused and eager; returns the launches that
+    made each phrase's rows and of one replay of its call."""
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.exec import phrase as ph
     from iresearch_tpu_torch.exec.batch import KERNELS
@@ -1119,14 +1324,24 @@ def run_phrases(torch, sr, scorer, k, dev, smi, kern, floor):
         if not plan.device_aux:
             raise AssertionError(f"phrase {name}: the plan has no device_aux row")
         parts = sum(len(spec.parts) for _a, spec in plan.device_aux)
-        tier = dq.call(0, k)[0]
+        tier = dq.single_call(0, k).tier
+        # the fused call's entry: its phrase rows are made here, once,
+        # before any replay (K3's plain form once per part), and kept
         kb.reset_launch_counts()
-        got = dq.execute_segment_async(0, k)
+        call = dq.single_call(0, k)
+        rows = call.fused_entry()[1][1]
         torch.cuda.synchronize()
-        launches = {n: c for n, c in kb.launch_counts().items() if c}
-        if launches.get("decode_rows", 0) != parts:
+        made = {n: c for n, c in kb.launch_counts().items() if c}
+        if made.get("decode_rows", 0) != parts:
             raise AssertionError(
-                f"phrase {name}: launches {launches}, needs decode_rows x {parts}")
+                f"phrase {name}: launches {made}, needs decode_rows x {parts}")
+        # the eager run reads views of the same rows: the plan keeps one copy
+        made_rows = next(x for x in call._dev_args if callable(x))(KERNELS)
+        if any(t.untyped_storage().data_ptr() != rows.untyped_storage().data_ptr()
+               for pair in made_rows for t in pair):
+            raise AssertionError(f"phrase {name}: the plan keeps a second copy of its rows")
+        got, replay, stats, ms_both = single_both_ways(torch, dq, k, f"phrase {name}", smi)
+        launches = dict(Counter(made) + Counter(replay))
         total.update(launches)
         plain = dq.execute_segment_async(0, k, plain=True)
         for g, w in zip(got, plain):
@@ -1141,7 +1356,9 @@ def run_phrases(torch, sr, scorer, k, dev, smi, kern, floor):
             raise AssertionError("device_phrase=False left a device_aux row")
         check_result(torch, got, dh.execute_segment_async(0, k), flt, sr, scorer, k,
                      f"phrase {name} vs host evaluation")
-        ms = sync_ms(torch, lambda: dq.execute_segment_async(0, k))
+        d = fresh_hit(torch, sr, flt, lambda f: DeviceQuery(f, [sr], scorer, device=dev), k,
+                      f"phrase {name}")
+        ms = ms_both[True]
         ms_host = sync_ms(torch, lambda: dh.execute_segment_async(0, k))
         # one evaluation of the leaf itself: on the device (decode, keys,
         # sort, membership, count, score), and by the host oracle
@@ -1158,9 +1375,15 @@ def run_phrases(torch, sr, scorer, k, dev, smi, kern, floor):
         host_ms = (time.perf_counter() - t1) * 1e3
         print(f"phrase {name:14s} tier {tier:5s} {hits:2d} hits, {parts} parts "
               f"(rows {[len(p.rows_d) for p in spec.parts]}, pos rows "
-              f"{[len(p.rows_p) for p in spec.parts]}), first-run launches {launches}: "
-              f"{ms:.4f} ms/query on the device rows, {ms_host:.4f} ms/query on the "
-              f"host-evaluated rows (both kept with the plan; {SINGLE_REPS} runs); one "
+              f"{[len(p.rows_p) for p in spec.parts]}), launches of the rows {made} and of "
+              f"a replay {replay}: {ms:.4f} ms/query fused on the device rows "
+              f"({ms_both[False]:.4f} eager), {ms_host:.4f} ms/query on the host-evaluated "
+              f"rows, eager (both rows kept with the plan; {SINGLE_REPS} runs); miss "
+              f"{stats['first_ms']:.4f} ms (capture {stats['capture_ms']:.4f}), "
+              f"{stats['nodes']} graph nodes; rows kept once by the plan, {rows.nbytes} bytes "
+              f"({len(plan.device_aux)} leaves x {plan.nd_pad} lanes x 5 B), and once by "
+              f"the entry; a fresh phrase (df ranks {d[0]:+d} of term "
+              f"{d[1]}) hit; one "
               f"evaluation of the leaf: {leaf_ms:.4f} ms on the device, {host_ms:.1f} ms "
               f"on the host ({len(pairs.docs)} matching docs) on {smi}")
     # K3's plain form on the parts' rows: against plain, and timed
@@ -1223,7 +1446,7 @@ def run_index(torch, srs, tasks, scorer, k, dev, smi, kind, profile):
               f"queries per tier {dict(tq)}")
     # nothing in the pass may wait for the device, its capture included: a
     # synchronise raises here
-    first, (vals_t, docs_t), entry, _stats = first_fused(torch, mb.run, mb.fused_key(),
+    first, (vals_t, docs_t), entry, _stats = first_fused(torch, mb.run, "batch", mb.fused_key(),
                                                          "index pass", smi)
     # one fetch (and with it the one synchronise) ends the pass
     packed = torch.stack([vals_t.view(torch.int32), docs_t]).cpu().numpy()
@@ -1353,12 +1576,76 @@ def run_serving(torch, srs, tasks, scorer, k, dev, smi, kind):
           f"requests 2-{SERVE_REQUESTS}, on {kind} ({smi})")
 
 
+def sharded_first_pass(torch, prep, k, what, smi):
+    """The first run of a prepared sharded batch on a fresh cache: every
+    signature group's miss (warm-up, capture, replay) under PyTorch's sync
+    debug mode set to raise, then one fetch. Prints per group its miss ms
+    (warm-up and capture), capture ms, graph nodes, launches per replay,
+    the bytes its entry holds (its buffer copy and its output) and what
+    its warm-up and capture added to the reserve, and the
+    device bytes the graph pool grew by (reserved after, the allocator's
+    cache emptied before and after, less before). Returns ((vals, docs)
+    tensors [Q, k], the entries in group order)."""
+    from iresearch_tpu_torch.exec import batch as B
+
+    for gi, g in enumerate(prep.groups):
+        if prep.fused_key(gi, min(k, prep.searcher.nd_pad, g[3])) in B._FUSED_KINDS["sharded"]:
+            raise AssertionError(f"{what}: group {gi} was captured before")
+    misses, grew_by = {}, {}
+    real = B._FusedPass.capture
+
+    def timed(self, body):
+        r = torch.cuda.memory_reserved()
+        t = time.perf_counter()
+        real(self, body)
+        misses[id(self)] = time.perf_counter() - t
+        grew_by[id(self)] = torch.cuda.memory_reserved() - r
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    B._FusedPass.capture = timed
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = prep.run(k)
+        vals = torch.stack([v for v, _d in out])
+        docs = torch.stack([d for _v, d in out])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        B._FusedPass.capture = real
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.empty_cache()
+    grew = torch.cuda.memory_reserved() - r0
+    cache = B._FUSED_KINDS["sharded"]
+    entries = [cache[prep.fused_key(gi, min(k, prep.searcher.nd_pad, g[3]))]
+               for gi, g in enumerate(prep.groups)]
+    tiers = {qis[0]: t for t, qis, *_r in prep.calls}
+    for gi, (e, g) in enumerate(zip(entries, prep.groups)):
+        own = sum(b.nbytes for b in e.bufs) + e.out.nbytes
+        print(f"  {what} group {gi} ({tiers[g[0][0]]}, Q={len(g[0])}): miss (warm-up and "
+              f"capture) {misses[id(e)] * 1e3:.4f} ms, capture {e.capture_s * 1e3:.4f} ms, "
+              f"{e.nodes} graph nodes, launches per replay {e.launches}, entry's own "
+              f"buffers {own} bytes, the reserve grew by {grew_by[id(e)]} bytes")
+    print(f"{what} fused: first pass (every group's warm-up, capture under the sync debug "
+          f"mode set to raise, replay) {first_ms:.4f} ms, of it capture "
+          f"{sum(e.capture_s for e in entries) * 1e3:.4f} ms host over {len(entries)} "
+          f"groups, {sum(e.nodes for e in entries)} graph nodes; the graph pool and "
+          f"entries grew the reserve by {grew} bytes ({grew // max(1, len(entries))} a "
+          f"group) on {smi}")
+    return (vals, docs), entries
+
+
 def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
     """Phase 12: the 400-query mix over the same index through the sharded
     executor, ``ShardedSearcher(srs, device=dev).prepare_many(mix, wand=True,
-    k_max=k).run(k)``, held against phase 10's ``prepare_all`` result
-    ``merged``; returns the launches of the checked pass."""
+    k_max=k).run(k)``, one graph replayed per signature group, held against
+    its eager run and phase 10's ``prepare_all`` result ``merged``; then
+    ``SHARDED_REQUESTS`` fresh ``prepare_many`` requests on an empty cache.
+    Returns the launches of one replayed pass."""
     from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import batch as B
     from iresearch_tpu_torch.exec.phrase import PhraseKeysSpec
     from iresearch_tpu_torch.exec.plan import PlanCompiler
     from iresearch_tpu_torch.kernels import build as kb
@@ -1377,30 +1664,41 @@ def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
           f"dense layout: {len(lay.terms)} eligible terms, stride {lay.stride} rows, rows per "
           f"class {lay.rows_c}; searcher device bytes {ss.device_bytes} (alive, norms, "
           f"uniform pools; allocated {torch.cuda.memory_allocated(dev)} bytes); prepare "
-          f"{prep_s:.3f} s on {smi}")
+          f"{prep_s:.3f} s, packed uploads {[p[1].nbytes for p in prep._packs]} bytes on {smi}")
     tiers = {}
     for t, qis, *_r in prep.calls:
         tiers[id(qis)] = (t, len(qis))
     print(f"sharded groups (tier, queries): {list(tiers.values())}; queries per tier "
           f"{dict(sum((Counter({t: n}) for t, n in tiers.values()), Counter()))}")
+    B.clear_fused_cache()
+    (vals_t, docs_t), entries = sharded_first_pass(torch, prep, k, "sharded pass", smi)
+    # one replayed pass, its launches counted apart: nothing in it may wait
+    # for the device
     kb.reset_launch_counts()
-    # nothing in the pass may wait for the device: a synchronise raises here
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = prep.run(k)
-        vals_t = torch.stack([v for v, _d in out])
-        docs_t = torch.stack([d for _v, d in out])
+        vals2 = torch.stack([v for v, _d in out])
+        docs2 = torch.stack([d for _v, d in out])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    packed = torch.stack([vals_t.view(torch.int32), docs_t]).cpu().numpy()
+    packed = torch.stack([vals2.view(torch.int32), docs2]).cpu().numpy()
     launches = kb.launch_counts()
+    if any(e.hits != 1 for e in entries):
+        raise AssertionError("sharded pass: the second pass did not hit every group")
     vals, docs = packed[0].view(np.float32), packed[1]
-    print(f"sharded pass: enqueued with no synchronise, one fetch of {packed.nbytes} bytes; "
-          f"launches {launches}")
+    print(f"sharded pass: {len(entries)} graph replays with no synchronise, one fetch of "
+          f"{packed.nbytes} bytes; launches per pass {launches}")
     if launches["decode_score_rows"] <= 0:
         raise AssertionError("K3's scored form never launched in the sharded pass")
     if vals.shape != (len(tasks), k) or not np.isfinite(vals[:, 0]).all():
         raise AssertionError(f"sharded pass: shape {vals.shape} or a query without a hit")
+    same_results(torch, [(vals_t, docs_t)], [(vals2, docs2)],
+                 "sharded pass: first and second fused run")
+    eager = prep.run(k, fused=False)
+    same_results(torch, [(vals2, docs2)], [(torch.stack([v for v, _d in eager]),
+                                           torch.stack([d for _v, d in eager]))],
+                 "sharded pass: fused and eager")
     t1 = time.perf_counter()
     checked = check_calls(torch, prep, "sharded")
     print(f"sharded pass, wrapper calls held against plain: {dict(checked)} "
@@ -1447,11 +1745,14 @@ def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
         ph_prep = time.perf_counter() - t1
         if not all(kw.get("phrase_keys") for _t, _q, _f, _a, kw in pp.calls):
             raise AssertionError(f"sharded {name}: the keys form did not run")
+        pp.run(k)  # the miss: warm-up, capture, replay
         kb.reset_launch_counts()
         got = pp.run(k)[0]
         torch.cuda.synchronize()
         ph_launches = {n: c for n, c in kb.launch_counts().items() if c}
         check_calls(torch, pp, f"sharded {name}")
+        eager = pp.run(k, fused=False)[0]
+        same_results(torch, [got], [eager], f"sharded {name}: fused and eager")
         plain = pp.run(k, plain=True)[0]
         wd, wv = oracle_topk_index(flt, srs, scorer, k)
         gv_, gd_ = (t.cpu().numpy() for t in got)
@@ -1464,30 +1765,72 @@ def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
         print(f"sharded {name}: keys form in every segment's call, PhraseKeysSpec rows "
               f"(smallest segment's keys per part {nkeys}), {int(np.isfinite(gv_).sum())} "
               f"hits equal plain and the oracle; prepare {ph_prep:.3f} s (with the checks "
-              f"{ph_all:.3f} s), launches {ph_launches}, "
-              f"{sync_ms(torch, lambda: pp.run(k)):.4f} ms/query synchronised "
+              f"{ph_all:.3f} s), launches per replay {ph_launches}, "
+              f"{sync_ms(torch, lambda: pp.run(k)):.4f} ms/query fused, "
+              f"{sync_ms(torch, lambda: pp.run(k, fused=False)):.4f} eager, synchronised "
               f"({SINGLE_REPS} runs) on {smi}")
 
-    def ms_per_pass(fn):
-        fn()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        for _ in range(SHARDED_PASSES):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t2) * 1e3 / SHARDED_PASSES
-
-    ms = ms_per_pass(lambda: prep.run(k))
-    print(f"sharded passes: {SHARDED_PASSES} x {len(tasks)} queries in "
-          f"{ms * SHARDED_PASSES / 1e3:.4f} s -> "
-          f"{len(tasks) / ms * 1e3:.1f} QPS ({ms:.4f} ms/pass) on {kind} ({smi})")
+    both_ways(torch, lambda fused: prep.run(k, fused=fused), len(tasks), "sharded passes",
+              smi, kind, passes=SHARDED_PASSES)
+    if profile:
+        for fused in (True, False):
+            profile_passes(torch, lambda: prep.run(k, fused=fused),
+                           f"{profile}.sharded.{'fused' if fused else 'eager'}", kind, smi,
+                           passes=1)
+    run_sharded_serving(torch, ss, filters, scorer, k, smi, kind)
     one = ss.prepare(tasks[0][1], scorer, k_max=k)
     print(f"sharded single query (prepare, {len(srs)} segments + merge): "
-          f"{sync_ms(torch, lambda: one.run(k)):.4f} ms/query synchronised "
+          f"{sync_ms(torch, lambda: one.run(k)):.4f} ms/query fused, "
+          f"{sync_ms(torch, lambda: one.run(k, fused=False)):.4f} eager, synchronised "
           f"({SINGLE_REPS} runs) on {smi}")
-    if profile:
-        profile_passes(torch, lambda: prep.run(k), profile + ".sharded", kind, smi, passes=2)
     return launches
+
+
+def run_sharded_serving(torch, ss, filters, scorer, k, smi, kind):
+    """Phase 12, serving: ``SHARDED_REQUESTS`` fresh ``prepare_many``
+    requests of the mix on an empty fused cache, each run and fetched.
+    Request 1 captures every group; each later one must hit every group's
+    entry (no capture); request 1's tensors must be unchanged after the
+    last, and its result equal the last one's (docs equal, scores rtol
+    1e-5). Prints prepare and run ms per request and the QPS."""
+    from iresearch_tpu_torch.exec import batch as B
+
+    B.clear_fused_cache()
+    torch.cuda.synchronize()
+    prep_ms, run_ms, fetched, kept, entries = [], [], [], None, None
+    for r in range(SHARDED_REQUESTS):
+        t1 = time.perf_counter()
+        prep = ss.prepare_many(filters, scorer, wand=True, k_max=k)
+        t2 = time.perf_counter()
+        out = prep.run(k)
+        vals = torch.stack([v for v, _d in out])
+        docs = torch.stack([d for _v, d in out])
+        fetched.append(torch.stack([vals.view(torch.int32), docs]).cpu().numpy())
+        t3 = time.perf_counter()
+        prep_ms.append((t2 - t1) * 1e3)
+        run_ms.append((t3 - t2) * 1e3)
+        cache = B._FUSED_KINDS["sharded"]
+        mine = [cache.get(prep.fused_key(gi, min(k, ss.nd_pad, g[3])))
+                for gi, g in enumerate(prep.groups)]
+        if r == 0:
+            kept, entries = (vals, docs), mine
+        elif mine != entries or any(e.hits != r for e in entries) or len(cache) != len(entries):
+            raise AssertionError(f"sharded serving request {r + 1}: not a hit on every group")
+    np.testing.assert_array_equal(fetched[0][1], fetched[-1][1])
+    np.testing.assert_allclose(fetched[0][0].view(np.float32), fetched[-1][0].view(np.float32),
+                               rtol=1e-5, atol=0.0)
+    again = torch.stack([kept[0].view(torch.int32), kept[1]]).cpu().numpy()
+    if not np.array_equal(again, fetched[0]):
+        raise AssertionError("sharded serving: request 1's tensors changed under later replays")
+    n = len(filters)
+    print(f"sharded serving: {SHARDED_REQUESTS} requests of {n} queries, each a fresh "
+          f"prepare_many(...).run({k}) fetched; every group of requests 2-{SHARDED_REQUESTS} "
+          f"hit request 1's entries ({len(entries)} groups, no capture); request 1 prepare "
+          f"{prep_ms[0]:.4f} ms, run {run_ms[0]:.4f} ms (captures included); requests 2-"
+          f"{SHARDED_REQUESTS} prepare {[round(x, 4) for x in prep_ms[1:]]} ms, run "
+          f"{[round(x, 4) for x in run_ms[1:]]} ms; "
+          f"{(n * (SHARDED_REQUESTS - 1)) / (sum(prep_ms[1:]) + sum(run_ms[1:])) * 1e3:.1f} "
+          f"QPS over requests 2-{SHARDED_REQUESTS} on {kind} ({smi})")
 
 
 def run_invert(torch, num_docs, seed, dev, smi):
@@ -1657,7 +2000,7 @@ def serve_ingested(torch, reader, term, scorer, k, dev, smi, kind):
     torch.cuda.synchronize()
     for s, p in enumerate(mb.preps):
         print(f"  ingested segment {s}: groups per tier {dict(Counter(c[0] for c in p.calls))}")
-    first, (vals_t, docs_t), _entry, _stats = first_fused(torch, mb.run, mb.fused_key(),
+    first, (vals_t, docs_t), _entry, _stats = first_fused(torch, mb.run, "batch", mb.fused_key(),
                                                           "ingested index pass", smi)
     packed = torch.stack([vals_t.view(torch.int32), docs_t]).cpu().numpy()
     launches = kb.launch_counts()
@@ -1746,6 +2089,7 @@ def run_cli(torch, num_docs, dev, smi, tmp):
     from iresearch_tpu_torch.cli import index_search
     from iresearch_tpu_torch.cli.__main__ import main as cli
     from iresearch_tpu_torch.exec import DeviceQuery
+    from iresearch_tpu_torch.exec import batch as B
     from iresearch_tpu_torch.exec.executor import KERNELS
     from iresearch_tpu_torch.index.reader import DirectoryReader
     from iresearch_tpu_torch.kernels import build as kb
@@ -1814,10 +2158,12 @@ def run_cli(torch, num_docs, dev, smi, tmp):
     search = ["search", "--in", tasks_path, "--index-dir", idx, "--topN", "10",
               "--max-tasks", "5", "--csv", "--device", str(dev)]
     index_search.run_tasks = noting
+    B.clear_fused_cache()
     try:
         kb.reset_launch_counts()
         rc_d, _out = tee(cli, search + ["--engine", "device"])
         launches = kb.launch_counts()
+        single = list(B._FUSED_KINDS["single"].values())
         rc_h, _out = tee(cli, search + ["--engine", "host"])
     finally:
         index_search.run_tasks = run_tasks
@@ -1838,26 +2184,42 @@ def run_cli(torch, num_docs, dev, smi, tmp):
     for name in ("dense_scan_rowmax", "decode_score_rows"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched by cli search")
-    print(f"per category, average us: device engine / host engine, on {smi}")
-    for cat in sorted(dstats):
-        (n, ds), (_n, hs) = dstats[cat], hstats[cat]
-        print(f"  {cat}: {ds * 1e6 / n:.0f} / {hs * 1e6 / n:.0f} ({n} tasks)")
+    hits = sum(e.hits for e in single)
+    print(f"cli search --engine device, fused by default: {len(single) + hits} single-query "
+          f"calls over {len(dres)} tasks x {len(segs)} segments, {len(single)} misses "
+          f"(a capture each), {hits} hits")
 
     # every wrapper call the device tasks made, again, recorded and held
-    # against the kernels' plain versions
+    # against the kernels' plain versions; each task timed again eager and
+    # fused (its entry made by the search above: a hit)
     scorer = get_scorer("bm25", {})
     rec = {name: [] for name in KERNELS._fields}
+    again = {True: Counter(), False: Counter()}
     for cat, text in dres:
         dq = DeviceQuery(index_search.build_filter(cat, text, 16), segs, scorer, device=dev)
+        for fused in (False, True):
+            t1 = time.perf_counter()
+            dq.top_k(10, fused=fused)
+            again[fused][cat] += time.perf_counter() - t1
         for si in range(len(segs)):
-            _tier, fn, args, kw = dq.call(si, 10)
+            call = dq.single_call(si, 10)
+            fn, args, kw = call.fn, call.args, call.kwargs
             for name, made in record_calls(KERNELS, fn, args, kw).items():
                 rec[name].extend(made)
+    print(f"per category, average us: device engine (fused, its misses included) / host "
+          f"engine; the device tasks again: eager / fused (hits), on {smi}")
+    for cat in sorted(dstats):
+        (n, ds), (_n, hs) = dstats[cat], hstats[cat]
+        print(f"  {cat}: {ds * 1e6 / n:.0f} / {hs * 1e6 / n:.0f}; "
+              f"{again[False][cat] * 1e6 / n:.0f} / {again[True][cat] * 1e6 / n:.0f} ({n} tasks)")
     checked = check_recorded(torch, rec, "cli device tasks")
+    # a miss launched its call's kernels twice, in the warm-up before its
+    # capture and in its replay; every other launch is one replay of a call
+    warm = sum((Counter(e.launches) for e in single), Counter())
     for name, n in launches.items():
-        if n > checked[name]:
-            raise AssertionError(f"kernel {name}: {n} launches by cli search, "
-                                 f"{checked[name]} calls checked")
+        if n - warm[name] > checked[name]:
+            raise AssertionError(f"kernel {name}: {n} launches by cli search ({warm[name]} "
+                                 f"in the misses' warm-ups), {checked[name]} calls checked")
 
     r = subprocess.run(
         [sys.executable, "-m", "iresearch_tpu_torch.cli", "dump", "--index-dir", idx,
@@ -2028,8 +2390,14 @@ def run_multihost(smi):
         if ok is None or m is None or "device=cuda:0" not in ok.group(0):
             raise AssertionError(f"multihost worker {pid}:\n{out[-2000:]}")
         launches = json.loads(m.group(1))
-        print(f"multihost worker {pid}: {ok.group(0)}; launches {launches} in its "
-              f"groups' tiers {m.group(2)}")
+        g = re.search(rf"^MULTIHOST_FUSED process={pid} groups=(\d+) entries=(\d+) "
+                      rf"captured=(\d+) nodes=(\d+)$", out, re.M)
+        if g is None or not int(g.group(1)) >= int(g.group(2)) == int(g.group(3)) > 0:
+            raise AssertionError(f"multihost worker {pid}: its groups' graphs not captured:"
+                                 f"\n{out[-2000:]}")
+        print(f"multihost worker {pid}: {ok.group(0)}; launches per replay {launches} in its "
+              f"groups' tiers {m.group(2)}; {g.group(0)} (a graph of its local part per "
+              f"group, the all_gather after the replay)")
         total.update(launches)
     print(f"multihost dryrun: 2 processes on one card, 1,536 docs in 8 segments, "
           f"{time.perf_counter() - t1:.3f} s, on {smi}")
@@ -2120,7 +2488,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     prep = QueryBatch(filters, [sr], scorer, wand=True, device=dev).prepare(0, k)
-    first, grouped, _entry, _stats = first_fused(torch, prep.run_grouped, prep._key,
+    first, grouped, _entry, _stats = first_fused(torch, prep.run_grouped, "batch", prep._key,
                                                  "main path", smi)
     torch.cuda.synchronize()
     launches = kb.launch_counts()
@@ -2168,12 +2536,14 @@ def main() -> int:
     tier_launches = run_tiers(torch, tier_prep, tier_tasks, sr, scorer, k, smi)
     print(f"launches over the {len(tier_tasks)} tier calls: {dict(tier_launches)}")
     tier_first, tier_second, _entry, _stats = first_fused(
-        torch, tier_prep.run_grouped, tier_prep._key, "tier batch", smi)
+        torch, tier_prep.run_grouped, "batch", tier_prep._key, "tier batch", smi)
     for got, what in ((tier_first, "first"), (tier_second, "second")):
         same_results(torch, strip(got), strip(tier_prep.run_grouped(fused=False)),
                      f"tier batch: {what} fused run and eager")
     print("tier batch: every tier's group captured and replayed in one graph")
     check_gather(torch, tier_prep, kern, floor, smi)
+    single_launches = run_single_tiers(torch, sr, scorer, k, dev, smi)
+    print(f"launches over one replay of each tier's single query: {dict(single_launches)}")
     phase("8 breadth and tiers", t0)
 
     t0 = time.perf_counter()
@@ -2240,7 +2610,7 @@ def main() -> int:
     print("imports: no module of jax or iresearch_tpu loaded")
 
     counts = dict(launches_pass=launches, launches_tiers=tier_launches,
-                  launches_phrase=phrase_launches, launches_index=index_launches,
+                  launches_single=single_launches, launches_phrase=phrase_launches, launches_index=index_launches,
                   launches_sharded=sharded_launches, launches_ingest=ingest_launches,
                   launches_cli=cli_launches, launches_multihost=multihost_launches)
     for name in kb.KERNELS:

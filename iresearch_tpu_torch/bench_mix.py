@@ -219,6 +219,31 @@ def tier_tasks(sr) -> List[Tuple[str, object, Dict[str, object]]]:
     ]
 
 
+def single_tier_tasks(sr) -> Dict[str, Tuple[object, bool, Dict[str, object], bool]]:
+    """One query per tier of the single query (``DeviceQuery``) as tier ->
+    (filter, wand, planner knobs, device_phrase): the mix's first High
+    term under WAND (skyline; on a segment whose grid has fewer than 384
+    rows, under 49,152 docs, only with ``exec/skyline.py``'s
+    ``SKYLINE_SCAN_RATIO`` lowered) and Low term (dslice), the breadth
+    categories MinMatch2High2Med (scan, from 20,000 to 5M docs: AndHighHigh
+    takes the skyline at 5M) and Phrase (its rows made on the device:
+    "phrase", in the aux tier), and ``tier_tasks`` under WAND (the aux
+    query's phrase evaluated on the host)."""
+    from iresearch_tpu_torch.search import filters as F
+
+    _term_at, high, _med, low = _ranked(sr)
+    breadth = {n: f for n, f, _w in breadth_tasks(sr)}
+    out = {
+        "skyline": (F.ByTerm("body", high[0]), True, {}, True),
+        "scan": (breadth["MinMatch2High2Med"], False, {}, True),
+        "dslice": (F.ByTerm("body", low[0]), False, {}, True),
+        "phrase": (breadth["Phrase"], False, {}, True),
+    }
+    for tier, f, kv in tier_tasks(sr):
+        out[tier] = (f, True, kv, tier != "aux")
+    return out
+
+
 def task_lines(sr, per_category: int = 5) -> List[str]:
     """A luceneutil task file over reader ``sr``: ``per_category`` lines
     of each of the CLI's 22 categories (``cli/index_search.py``), their

@@ -30,6 +30,9 @@ packed buffer (``_pack_args``). ``PreparedBatch.run_grouped`` and
 global LRU cache by the batch's structure (``_FUSED_CACHE``, at most
 ``IRS_FUSED_CACHE_MAX`` entries, ``clear_fused_cache``), as the JAX
 package runs one jitted program; ``fused=False`` runs the groups eagerly.
+The single query (``SingleCall``, behind ``DeviceQuery``) and the sharded
+executor's signature groups (``parallel/sharded.py``) replay graphs of
+their own the same way, each kind in an LRU of its own.
 """
 
 from __future__ import annotations
@@ -159,11 +162,12 @@ def _run_fold(
     """The fold tier (``exec/batch.py:_run_batch``, fold branch).
 
     ``aux_sp`` holds the host-evaluated aux leaves' sparse uploads,
-    ``phrase(kern)`` the on-device phrase leaves' dense rows; ``aux_rows``
-    says, per aux leaf, which of the two it is and its place there. With
-    ``phrase_keys`` (the sharded executor's keys form), ``phrase(kern)``
-    gives per leaf its [Q, ...] key tensors instead, and
-    ``phrase_keys(chunk)`` makes the rows of each chunk of queries."""
+    ``phrase`` the on-device phrase leaves' dense rows, or a callable
+    ``phrase(kern)`` that makes them; ``aux_rows`` says, per aux leaf,
+    which of the two it is and its place there. With ``phrase_keys`` (the
+    sharded executor's keys form), ``phrase`` holds per leaf its [Q, ...]
+    key tensors instead, and ``phrase_keys(chunk)`` makes the rows of each
+    chunk of queries."""
 
     def one(xs):
         rs, lm, ax, dd, pr = xs
@@ -185,7 +189,7 @@ def _run_fold(
         return topk_docs(torch.where(match, score, _NEG_INF), None, k)
 
     width = nd * (max(1, num_leaves) + len(aux_rows))
-    pr = None if phrase is None else phrase(kern)
+    pr = phrase(kern) if callable(phrase) else phrase
     return _chunked(
         one, (rowsets, leaf_min, aux_sp, dense_dyn, pr), leaf_min.shape[0], width
     )
@@ -265,12 +269,12 @@ def _dense_ub(p, di: int, device):
 
 
 def _phrase_rows(sr, reps, scorer: Scorer, device):
-    """``rows(kern)`` -> per on-device phrase leaf of the plans ``reps``
+    """A ``_PhraseRows`` over the plans ``reps``: per on-device phrase leaf
     (match bool [Q, nd], score f32 [Q, nd]), computed by
     ``run_phrase_dense`` on the first call with that kernel set and kept
     (the counterpart of the rows ``_build_device_inputs`` fills once per
     plan)."""
-    from iresearch_tpu_torch.exec.phrase import DevicePhraseSpec, run_phrase_dense
+    from iresearch_tpu_torch.exec.phrase import DevicePhraseSpec
 
     for p in reps:
         for _a, spec in p.device_aux:
@@ -283,11 +287,25 @@ def _phrase_rows(sr, reps, scorer: Scorer, device):
                     "here (plans compiled with device_phrase=True); the keys "
                     "form runs in parallel/sharded.py"
                 )
-    memo = {}
+    return _PhraseRows(sr, reps, scorer, device)
 
-    def rows(kern):
-        out = memo.get(kern)
+
+class _PhraseRows:
+    """``rows(kern)`` -> per on-device phrase leaf of the plans (match,
+    score), made on the first call with ``kern`` and kept once: ``flat``
+    moves them into one buffer and keeps views of it in their place."""
+
+    def __init__(self, sr, reps, scorer: Scorer, device) -> None:
+        self._args = (sr, reps, scorer, device)
+        self._memo = {}
+        self._flat = None
+
+    def __call__(self, kern):
+        from iresearch_tpu_torch.exec.phrase import run_phrase_dense
+
+        out = self._memo.get(kern)
         if out is None:
+            sr, reps, scorer, device = self._args
             out = []
             for j in range(len(reps[0].device_aux)):
                 per = [
@@ -298,10 +316,26 @@ def _phrase_rows(sr, reps, scorer: Scorer, device):
                     for p in reps
                 ]
                 out.append(tuple(torch.stack(x) for x in zip(*per)))
-            out = memo[kern] = tuple(out)
+            out = self._memo[kern] = tuple(out)
         return out
 
-    return rows
+    def flat(self):
+        """(one uint8 buffer of every leaf's kernel-made scores, then its
+        matches, so that every section is aligned; its layout), made on
+        the first call (the rows computed then if they are not yet)."""
+        if self._flat is None:
+            pairs = self(KERNELS)
+            self._flat = _flat_outputs([s for _m, s in pairs] + [m for m, _s in pairs])
+            self._memo[KERNELS] = _rows_of(*self._flat)
+        return self._flat
+
+
+def _rows_of(flat, layout):
+    """The (match, score) pairs that ``_PhraseRows.flat`` laid out in
+    ``flat``, as views of it."""
+    views = _split_outputs(flat, layout)
+    n = len(views) // 2
+    return tuple(zip(views[n:], views[:n]))
 
 
 def _stack_rows(arrays, R: int, dtype, fill) -> np.ndarray:
@@ -422,12 +456,15 @@ def group_call(
             up([p.dense_spans[di].w for p in reps], np.float32),
         )
         if use_wand:
-            # the per-plan uploads, stacked to [Q, ndrows] by the runner
-            # inside the pass (``_stack_dense_dyn``)
-            dd += (
-                tuple(_dense_ub(p, di, device) for p in reps),
-                up([p.dense_spans[di].other for p in reps], np.float32),
+            # a batch: the per-plan uploads, stacked to [Q, ndrows] by the
+            # runner inside the pass (``_stack_dense_dyn``); the single
+            # query: packed with its other inputs, so that a fresh query of
+            # the same signature replays the same graph
+            ub = (
+                up(np.asarray(p0.dense_spans[di].ub, np.float32)[None], np.float32)
+                if single else tuple(_dense_ub(p, di, device) for p in reps)
             )
+            dd += (ub, up([p.dense_spans[di].other for p in reps], np.float32))
         dense_dyn.append(dd)
         same_dl = cand_fields is None or cand_fields == {fname}
         dense_static.append((BITS[cls], leaf, ndrows, same_dl))
@@ -648,12 +685,13 @@ def _template_key(templates, dev_args, buf):
     offsets, shapes and dtypes; static values) and kwargs, the buffer's
     size, and for each long-lived tensor what a captured graph reads
     through it: its address, shape, strides, dtype and device (a callable
-    by its identity, which its cache entry keeps alive)."""
+    by its identity, which its cache entry keeps alive; any other object,
+    such as the single query's stand-in for its phrase rows, as it is)."""
 
     def dev_key(x):
         if isinstance(x, torch.Tensor):
             return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype, x.device)
-        return ("callable", id(x))
+        return ("callable", id(x)) if callable(x) else x
 
     return (
         tuple((fn, tp, tuple(sorted(kw.items()))) for fn, tp, kw in templates),
@@ -668,11 +706,19 @@ def _kept(dev_args):
     return tuple(x for x in dev_args if not isinstance(x, torch.Tensor))
 
 
-# global fused-pass cache: serving creates a fresh PreparedBatch per
+# global fused-pass caches: serving creates a fresh PreparedBatch per
 # request batch; a batch of the same category mix and row buckets replays
 # the entry's graph. LRU-bounded: a long-lived server with a drifting mix
-# must not keep graphs forever.
-_FUSED_CACHE: "OrderedDict[tuple, _FusedPass]" = OrderedDict()
+# must not keep graphs forever. One LRU per kind, each of at most
+# ``_FUSED_CACHE_MAX`` entries, so that a run of distinct single queries
+# (a miss costs milliseconds) never evicts a batch's entry (a miss of the
+# index pass costs ~0.4 s): "batch" holds the batches and index passes
+# (``_FUSED_CACHE``), "single" the single queries, "sharded" the sharded
+# executor's signature groups.
+_FUSED_KINDS: "Dict[str, OrderedDict]" = {
+    "batch": OrderedDict(), "single": OrderedDict(), "sharded": OrderedDict(),
+}
+_FUSED_CACHE: "OrderedDict[tuple, _FusedPass]" = _FUSED_KINDS["batch"]
 _FUSED_CACHE_MAX = int(os.environ.get("IRS_FUSED_CACHE_MAX", "256"))
 _FUSED_LOCK = threading.Lock()
 # one memory pool per card shared by every cached graph: replays run one
@@ -680,12 +726,18 @@ _FUSED_LOCK = threading.Lock()
 # before the next, so one graph's intermediates may lie where another's
 # were (fused calls from several threads must share that stream)
 _GRAPH_POOLS: Dict[torch.device, tuple] = {}
+# one side stream per card for every warm-up and capture: the allocator
+# caches freed blocks per stream, so warm-ups on one stream reuse each
+# other's memory where a stream per capture would strand it
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 def clear_fused_cache() -> None:
-    """Drop every cached fused pass and free its graph and buffers."""
+    """Drop every cached fused pass of every kind and free its graph and
+    buffers."""
     with _FUSED_LOCK:
-        _FUSED_CACHE.clear()
+        for cache in _FUSED_KINDS.values():
+            cache.clear()
         _GRAPH_POOLS.clear()
         if torch.cuda.is_initialized():
             torch.cuda.empty_cache()
@@ -713,8 +765,8 @@ def _split_outputs(flat, layout):
 class _FusedPass:
     """A cached fused pass: its own copy of the packed buffers and, on the
     card, the CUDA graph of the pass over that copy, the graph's output
-    buffer, its launches of each kernel per replay (counted at capture)
-    and its node count."""
+    buffer, its launches of each kernel per replay (counted at capture),
+    its node count and how often a later call hit it."""
 
     def __init__(self, bufs, kept) -> None:
         self.bufs = tuple(b.clone() for b in bufs)
@@ -724,6 +776,7 @@ class _FusedPass:
         self.launches: Dict[str, int] = {}
         self.nodes = 0
         self.capture_s = 0.0
+        self.hits = 0
 
     def load(self, bufs) -> None:
         for dst, src in zip(self.bufs, bufs):
@@ -735,7 +788,9 @@ class _FusedPass:
         settle), then capture it into one graph. A failure raises."""
         dev = self.bufs[0].device
         cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = _CAPTURE_STREAMS.get(dev)
+        if side is None:
+            side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             body(self.bufs)
@@ -770,23 +825,88 @@ class _FusedPass:
         return _split_outputs(self.out.clone(), self.layout)
 
 
-def _run_fused(key, bufs, body, kept=()):
+def _run_fused(kind: str, key, bufs, body, kept=()):
     """The flat outputs of ``body`` (the pass over buffers like ``bufs``)
-    through the cache entry of ``key``: on a miss a new entry (on the card
-    its graph captured), on a hit ``bufs`` copied into the entry's own."""
+    through the entry of ``key`` in the LRU of ``kind`` ("batch",
+    "single" or "sharded"): on a miss a new entry (on the card its graph
+    captured), on a hit ``bufs`` copied into the entry's own."""
+    cache = _FUSED_KINDS[kind]
     with _FUSED_LOCK:
-        entry = _FUSED_CACHE.get(key)
+        entry = cache.get(key)
         if entry is None:
             entry = _FusedPass(bufs, kept)
             if entry.bufs[0].is_cuda:
                 entry.capture(body)
-            _FUSED_CACHE[key] = entry
-            while len(_FUSED_CACHE) > _FUSED_CACHE_MAX:
-                _FUSED_CACHE.popitem(last=False)
+            cache[key] = entry
+            while len(cache) > _FUSED_CACHE_MAX:
+                cache.popitem(last=False)
         else:
-            _FUSED_CACHE.move_to_end(key)
+            cache.move_to_end(key)
+            entry.hits += 1
             entry.load(bufs)
         return entry.run(body)
+
+
+class _Rows(NamedTuple):
+    """Stand-in, in a single query's cache key, for its on-device phrase
+    rows: their layout in the buffer that a hit copies in."""
+
+    layout: Tuple[tuple, ...]
+
+
+class SingleCall:
+    """One query's call on one segment (the counterpart of the JAX
+    package's jitted ``_run_segment*`` runners): what ``group_call`` made
+    for the plan, its host-made inputs in one packed upload, and its fused
+    entry.
+
+    ``tier``, ``fn``, ``args`` (over ``buf``) and ``kwargs`` are the eager
+    call, ``fn(KERNELS or PLAIN, *args, **kwargs)``. ``run_fused()``
+    replays one CUDA graph, kept in the "single" LRU under ``("single",
+    _template_key, k)``. The key holds no address of a per-plan tensor, so
+    a fresh query of the same tier, row buckets and static arguments hits
+    the entry that another query made. On-device phrase rows
+    (``_PhraseRows``) are made before the replay, on the first call of
+    ``fused_entry``, in one buffer that the plan keeps once and that a hit
+    copies into a buffer of the entry's, as the packed inputs are, so
+    phrases hit too; the graph reads them, and never computes them."""
+
+    def __init__(self, tier, fn, args, kwargs, device, k: int) -> None:
+        (tp,), self.buf, dev_args = _pack_args([args], device)
+        self.tier, self.fn, self.kwargs, self.k = tier, fn, kwargs, k
+        self.args = _materialize(tp, self.buf, dev_args)
+        self._tp, self._dev_args = tp, dev_args
+        self._fused = None
+
+    def fused_entry(self):
+        """(key, bufs, body) of the call's fused entry, made on the first
+        call: for a phrase that computes its rows on the card
+        (``_PhraseRows.flat``: K3 and ``run_phrase_dense``)."""
+        if self._fused is None:
+            dev_args, bufs, key_args = self._dev_args, (self.buf,), self._dev_args
+            # at most one callable: the plan's phrase rows
+            slot = next((i for i, x in enumerate(dev_args) if callable(x)), None)
+            if slot is not None:
+                rows, layout = dev_args[slot].flat()
+                bufs += (rows,)
+                key_args = dev_args[:slot] + (_Rows(tuple(layout)),) + dev_args[slot + 1:]
+            tp, fn, kwargs = self._tp, self.fn, self.kwargs
+
+            def body(bufs):
+                args = dev_args
+                if slot is not None:
+                    args = dev_args[:slot] + (_rows_of(bufs[1], layout),) + dev_args[slot + 1:]
+                return list(fn(KERNELS, *_materialize(tp, bufs[0], args), **kwargs))
+
+            key = ("single", _template_key(((fn, tp, kwargs),), key_args, self.buf), self.k)
+            self._fused = (key, bufs, body)
+        return self._fused
+
+    def run_fused(self):
+        """(vals [1, k'], docs [1, k']) as fresh tensors, through the
+        call's fused entry."""
+        key, bufs, body = self.fused_entry()
+        return tuple(_run_fused("single", key, bufs, body))
 
 
 class QueryBatch:
@@ -989,7 +1109,7 @@ class PreparedBatch:
                 for _tier, qis, fn, args, kwargs in self._calls
             ]
         outs = _run_fused(
-            self._key, (self._buf,), self._body(KERNELS), _kept(self._dev_args)
+            "batch", self._key, (self._buf,), self._body(KERNELS), _kept(self._dev_args)
         )
         return [
             ((outs[2 * i], outs[2 * i + 1]), c[1])

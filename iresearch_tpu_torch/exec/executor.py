@@ -23,7 +23,12 @@ original. Plans are shared between queries through the cache, so a caller
 never mutates one; uploads are kept in ``plan.cache``.
 
 The entry points take the port's own readers, filters and scorers, and
-run on the card unless the caller names another ``device``.
+run on the card unless the caller names another ``device``. A query's
+call on a segment (``DeviceQuery.single_call``, ``exec/batch.py:
+SingleCall``) replays one CUDA graph per call signature, the counterpart
+of the JAX package's jitted ``_run_segment*`` runners: a fresh query of
+the same tier, row buckets and static arguments replays the graph another
+query captured; ``fused=False`` runs the call eagerly.
 
 Scatter-adds go through ``index_add_``, which on CUDA sums in no fixed
 order, as XLA's scatter does on the TPU: fold scores may differ from run
@@ -505,24 +510,22 @@ class DeviceQuery:
                 self._full_plans[seg_idx] = p
         return p
 
-    def call(self, seg_idx: int, k: int):
-        """(tier, runner, args, kwargs) of this query's top-k on one
-        segment, its inputs uploaded once and kept in ``plan.cache`` (so
-        plans shared through the plan cache share uploads);
-        ``runner(KERNELS or PLAIN, *args, **kwargs)`` -> (vals [1, k'],
-        docs [1, k']). The tier dispatch of
-        ``DeviceQuery.execute_segment_async`` in the JAX package."""
+    def single_call(self, seg_idx: int, k: int):
+        """This query's top-k on one segment as a ``exec/batch.py:
+        SingleCall``: the tier's runner and its inputs, uploaded once in
+        one packed buffer and kept in ``plan.cache`` (so plans shared
+        through the plan cache share uploads), and its fused entry. The
+        tier dispatch of ``DeviceQuery.execute_segment_async`` in the JAX
+        package."""
         plan = self.plan_for_k(seg_idx, k)
         key = ("torch_call", self.device, k, self.wand_sample, self.wand_mode)
         c = plan.cache.get(key)
         if c is None:
-            from iresearch_tpu_torch.exec.batch import (
-                _materialize, _pack_args, group_call, sky_spec,
-            )
+            from iresearch_tpu_torch.exec.batch import SingleCall, group_call, sky_spec
 
             sr = self.prepared.segments[seg_idx]
             sp = sky_spec(plan, sr, self.scorer, min(k, plan.nd_pad))
-            tier, fn, args, kwargs = group_call(
+            call = group_call(
                 sr, [plan], k, self.scorer, self.device,
                 sky_specs=[sp],
                 sky_M=None if sp is None else len(sp.row_ids),
@@ -530,32 +533,39 @@ class DeviceQuery:
                 wand_mode=self.wand_mode,
                 single=True,
             )
-            # the host-made inputs in one upload; the call runs eagerly
-            (tp,), buf, dev_args = _pack_args([args], self.device)
-            c = plan.cache[key] = (tier, fn, _materialize(tp, buf, dev_args), kwargs)
+            c = plan.cache[key] = SingleCall(*call, self.device, k)
         return c
 
-    def execute_segment_async(self, seg_idx: int, k: int, plain: bool = False):
-        """Per-segment top-k as tensors on the device: (scores f32 [k'],
-        local docs i32 [k']), k' <= k; -inf scores are non-matches.
-        ``plain=True`` runs the kernels' plain versions instead."""
-        _tier, fn, args, kwargs = self.call(seg_idx, k)
-        vals, docs = fn(PLAIN if plain else KERNELS, *args, **kwargs)
+    def execute_segment_async(
+        self, seg_idx: int, k: int, plain: bool = False, fused: bool = True
+    ):
+        """Per-segment top-k as fresh tensors on the device: (scores f32
+        [k'], local docs i32 [k']), k' <= k; -inf scores are non-matches.
+        ``fused=True`` (default) replays the CUDA graph of this call's
+        signature (``SingleCall.run_fused``: captured on the first call of
+        the signature, by this query or another); ``fused=False`` runs the
+        tier eagerly (the debug path); ``plain=True`` runs the kernels'
+        plain versions eagerly."""
+        c = self.single_call(seg_idx, k)
+        if fused and not plain:
+            vals, docs = c.run_fused()
+        else:
+            vals, docs = c.fn(PLAIN if plain else KERNELS, *c.args, **c.kwargs)
         return vals[0], docs[0]
 
     def execute_segment(
-        self, seg_idx: int, k: int, plain: bool = False
+        self, seg_idx: int, k: int, plain: bool = False, fused: bool = True
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Per-segment top-k -> (scores f32 [k'], local docs i32 [k'])."""
-        vals, docs = self.execute_segment_async(seg_idx, k, plain)
+        vals, docs = self.execute_segment_async(seg_idx, k, plain, fused)
         return vals.cpu().numpy(), docs.cpu().numpy()
 
-    def top_k(self, k: int) -> List[Tuple[int, float]]:
+    def top_k(self, k: int, fused: bool = True) -> List[Tuple[int, float]]:
         """Global top-k (global_doc, score), ordered by (-score, doc)."""
         out: List[Tuple[int, float]] = []
         base = 0
         for s, sr in enumerate(self.prepared.segments):
-            vals, docs = self.execute_segment(s, k)
+            vals, docs = self.execute_segment(s, k, fused=fused)
             for v, d in zip(vals, docs):
                 if math.isinf(v) and v < 0:
                     continue

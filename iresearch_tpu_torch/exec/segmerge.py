@@ -180,7 +180,7 @@ class MergedBatch:
 
         kept = tuple(x for p in self.preps for x in _kept(p._dev_args))
         vals, docs = _run_fused(
-            self.fused_key(), tuple(p._buf for p in self.preps) + (self._buf,),
+            "batch", self.fused_key(), tuple(p._buf for p in self.preps) + (self._buf,),
             body, kept,
         )
         return vals, docs

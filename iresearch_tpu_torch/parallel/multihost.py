@@ -149,6 +149,14 @@ def run_worker(
         tiers = sorted({c[0] for c in prep.calls})
         print(f"MULTIHOST_LAUNCHES process={process_id} {json.dumps(launches)} "
               f"tiers={','.join(tiers)}", flush=True)
+        from iresearch_tpu_torch.exec.batch import _FUSED_KINDS
+
+        # top_k replays one graph of this process's part per signature
+        # group; the all_gather and the re-rank follow it
+        graphs = _FUSED_KINDS["sharded"].values()
+        print(f"MULTIHOST_FUSED process={process_id} groups={len(prep.groups)} "
+              f"entries={len(graphs)} captured={sum(e.graph is not None for e in graphs)} "
+              f"nodes={sum(e.nodes for e in graphs)}", flush=True)
         print(f"MULTIHOST_OK process={process_id}/{num_processes} "
               f"devices={n_global} queries={len(qs)} device={dev}", flush=True)
     finally:

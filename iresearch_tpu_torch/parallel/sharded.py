@@ -24,21 +24,37 @@ re-rank gives the global top-k.
 
 Per searcher and field the segments' ``norms`` (clamped to 1, padded with
 1) and per segment ``alive`` (padded with False) are held at ``nd_pad``,
-and the uniform dense pools are uploaded per segment on first use; a
-prepared batch uploads its rows once, and ``run`` only launches work.
+and the uniform dense pools are uploaded per segment on first use. A
+prepared batch packs each signature group's host-made arrays into one
+buffer and one upload (``exec/batch.py:_pack_args``), and ``run`` replays
+one CUDA graph per group, the counterpart of the JAX package's one jitted
+``shard_map`` program per group (``_sharded_topk_batch``): every local
+segment's runner, the doc-base shift and the concat, and with one process
+the final re-rank too. With more processes the ``all_gather`` (``gloo``
+stages CUDA tensors on the host, which a graph cannot hold) and the
+re-rank follow the replay. The graphs live in ``exec/batch.py``'s
+"sharded" LRU, so a fresh ``prepare_many`` of the same structure on the
+same searcher replays them; ``run(fused=False)`` is the eager debug path.
 """
 
 from __future__ import annotations
 
 import math
 from collections import namedtuple
-from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from iresearch_tpu_torch.exec.batch import _run_candidates, _run_fold, _run_wand
+from iresearch_tpu_torch.exec.batch import (
+    _materialize,
+    _pack_args,
+    _run_candidates,
+    _run_fold,
+    _run_fused,
+    _run_wand,
+    _template_key,
+)
 from iresearch_tpu_torch.exec.executor import (
     KERNELS,
     PLAIN,
@@ -83,19 +99,37 @@ def _pow2(n: int) -> int:
     return p
 
 
-def _given(x):
-    """A ``phrase(kern)`` callable of ``_run_fold`` that returns ``x``."""
-    return lambda kern: x
+class _KeysRows:
+    """``phrase_keys`` of ``_run_fold`` in the keys form: per phrase-keys
+    aux leaf (match bool [Q, nd], score f32 [Q, nd]) of a chunk's (keys
+    per part [Q, NK], w [Q]) (the JAX package's ``sharded.py:777-806``).
+    ``consts`` holds per leaf (norms f32 [nd], avgdl, caplog); each avgdl
+    is put on the norms' device here, at prepare, since a graph's capture
+    cannot upload it. Equal and hashed by what it computes with, the
+    norms' addresses and the scalars, not by identity: a fused group's key
+    holds it (and with it the tensors its graph reads), and a fresh
+    prepare makes a new one."""
 
+    def __init__(self, consts, scorer: Scorer, nd: int) -> None:
+        self.scorer, self.nd = scorer, nd
+        self.consts = tuple(
+            (n, torch.tensor(a, dtype=torch.float32, device=n.device), c) for n, a, c in consts)
+        self._sig = (
+            tuple((n.data_ptr(), tuple(n.shape), n.dtype, n.device, a, c) for n, a, c in consts),
+            scorer, nd,
+        )
 
-def _keys_rows(pr, *, consts, scorer: Scorer, nd: int):
-    """Per phrase-keys aux leaf (match bool [Q, nd], score f32 [Q, nd]) of
-    a chunk's (keys per part [Q, NK], w [Q]) (the JAX package's
-    ``sharded.py:777-806``)."""
-    return tuple(
-        phrase_rows(keys, w, norms, avgdl, scorer=scorer, shift=caplog, nd=nd)
-        for (keys, w), (norms, avgdl, caplog) in zip(pr, consts)
-    )
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _KeysRows) and self._sig == other._sig
+
+    def __hash__(self) -> int:
+        return hash(self._sig)
+
+    def __call__(self, pr):
+        return tuple(
+            phrase_rows(keys, w, norms, avgdl, scorer=self.scorer, shift=caplog, nd=self.nd)
+            for (keys, w), (norms, avgdl, caplog) in zip(pr, self.consts)
+        )
 
 
 class ShardedSearcher:
@@ -469,7 +503,9 @@ class ShardedSearcher:
         """((query_indices, mode, use_wand, cap), [(tier, query_indices,
         runner, args, kwargs, segment)]) of one signature group: the
         [S, Q, ...] host arrays of the JAX package's ``sharded.py:437-606``,
-        then per local segment its slices uploaded and the tier's runner."""
+        then per local segment its slices (numpy arrays, which
+        ``PreparedShardedBatch`` packs into one upload per group) beside
+        the segment's resident tensors, and the tier's runner."""
         tree, num_leaves, mode, use_wand, qkeys, A, Rs, dkeys, pkeys_sig = sig
         # θ pruning is useless when the sampled phase already decodes
         # every row (same rule as exec/batch.py); dense spans keep it
@@ -560,7 +596,10 @@ class ShardedSearcher:
         else:
             tier = "aux" if A else "fold"
 
-        up = self._up
+        def up(a, dtype):
+            # packed per group by ``PreparedShardedBatch``: one upload
+            return np.ascontiguousarray(a, dtype)
+
         avgdl_t = up(avgdl, np.float32)
         leaf_min_t = up(leaf_min_b, np.int32)
         davg_t = [up(np.float32(d[4]), np.float32) for d in dense_np]
@@ -609,7 +648,7 @@ class ShardedSearcher:
                 kwargs = dict(common, sample=wand_sample, wand_mode="exact")
                 calls.append((tier, qis, _run_wand, args, kwargs, si))
                 continue
-            # host aux leaves: sparse per-segment uploads, densified by the
+            # host aux leaves: sparse per-segment arrays, densified by the
             # runner; the phrase-keys leaves overwrite their slots
             aux_sp, aux_rows = [], []
             for a in range(A):
@@ -628,19 +667,21 @@ class ShardedSearcher:
                 for j, (d, v) in enumerate(pairs):
                     docs[j, : len(d)] = d
                     vals[j, : len(v)] = v
-                aux_sp.append((up(docs, np.int32), up(vals, np.float32)))
+                aux_sp.append((docs, vals))
             phrase, keys_fn = None, None
             if phrase_np:
-                phrase = _given(tuple(
+                # per leaf (keys per part [Q, NK], w [Q]), in the packed
+                # buffer with the rest
+                phrase = tuple(
                     (tuple(up(karr[si], np.int32) for karr in parts), up(w_arr[si], np.float32))
                     for _ai, parts, w_arr, _pavg, _cl, _fld in phrase_np
-                ))
-                keys_fn = partial(
-                    _keys_rows, scorer=scorer, nd=self.nd_pad,
-                    consts=tuple(
+                )
+                keys_fn = _KeysRows(
+                    tuple(
                         (self._norms_of(fld, si), f32(pavg), caplog_a)
                         for _ai, _p, _w, pavg, caplog_a, fld in phrase_np
                     ),
+                    scorer, self.nd_pad,
                 )
             args = (pools, rowsets, avgdl_t, leaf_min_t, tuple(aux_sp), alive,
                     dense_shared, dense_dyn, phrase)
@@ -648,20 +689,24 @@ class ShardedSearcher:
             calls.append((tier, qis, _run_fold, args, kwargs, si))
         return (qis, mode, use_wand, cap), calls
 
-    def _merge(self, parts, q: int, kk: int):
-        """Global (vals [q, kk], docs [q, kk]) of the local segments' top-k
-        lists (global docs): concatenated along the candidate axis, joined
-        across the group's processes, re-ranked by (score desc, doc asc)
-        (the JAX package's ``sharded.py:848-863``)."""
+    def _concat(self, parts, q: int, kk: int):
+        """(vals [q, per_shard * kk], docs) of the local segments' top-k
+        lists (global docs) concatenated along the candidate axis, padding
+        segments given no candidate."""
         dev = self.device
         pad = self.per_shard - len(parts)
-        if pad:  # padding segments: no candidate
+        if pad:
             parts = list(parts) + [(
                 torch.full((q, kk * pad), float("-inf"), dtype=torch.float32, device=dev),
                 torch.zeros((q, kk * pad), dtype=torch.int32, device=dev),
             )]
-        vals = torch.cat([v for v, _d in parts], dim=1)
-        docs = torch.cat([d for _v, d in parts], dim=1)
+        return (torch.cat([v for v, _d in parts], dim=1),
+                torch.cat([d for _v, d in parts], dim=1))
+
+    def _join(self, vals, docs, kk: int):
+        """Global (vals [q, kk], docs [q, kk]) of this process's candidates:
+        joined across the group's processes by ``all_gather`` and re-ranked
+        by (score desc, doc asc) (the JAX package's ``sharded.py:848-863``)."""
         if self.D > 1:
             import torch.distributed as dist
 
@@ -702,16 +747,30 @@ class ShardedSearcher:
 
 
 class PreparedShardedBatch:
-    """A sharded batch resident on the device; ``run`` only launches work."""
+    """A sharded batch resident on the device: each signature group's
+    host-made arrays in one packed upload; ``run`` replays one CUDA graph
+    per group."""
 
     def __init__(self, searcher: ShardedSearcher, groups, calls, kmax=None) -> None:
         self.searcher = searcher
         # per signature group: (query_indices, mode, use_wand, cap), cap
         # the candidate lanes that bound its k
         self.groups = groups
-        # per (group, local segment): (tier, query_indices, runner, args,
-        # kwargs, segment, group index)
-        self._calls = calls
+        # per group: ([(runner, template, kwargs, segment)], buffer,
+        # long-lived tensors) and its fused keys by k
+        self._packs, self._keys = [], {}
+        # per (group, local segment): (tier, query_indices, runner, args
+        # over the group's buffer, kwargs, segment, group index)
+        self._calls = []
+        for gi in range(len(groups)):
+            mine = [c for c in calls if c[6] == gi]
+            templates, buf, dev_args = _pack_args([c[3] for c in mine], searcher.device)
+            self._packs.append((
+                tuple((c[2], tp, c[4], c[5]) for c, tp in zip(mine, templates)),
+                buf, dev_args,
+            ))
+            self._calls += [c[:3] + (_materialize(tp, buf, dev_args),) + c[4:]
+                            for c, tp in zip(mine, templates)]
         self.num_queries = sum(len(g[0]) for g in groups)
         self._kmax = kmax  # None = exhaustive for any k
 
@@ -722,10 +781,48 @@ class PreparedShardedBatch:
         checking a kernel at the real shapes (as ``PreparedBatch.calls``)."""
         return [c[:5] for c in self._calls]
 
-    def run(self, k: int, plain: bool = False):
+    def fused_key(self, gi: int, kk: int) -> tuple:
+        """Group ``gi``'s key in ``exec/batch.py``'s "sharded" LRU at top-
+        ``kk``: its runners, templates and kwargs, its long-lived tensors'
+        addresses, the local segments' doc bases, the padding and whether
+        the re-rank is in the graph (one process)."""
+        key = self._keys.get((gi, kk))
+        if key is None:
+            tps, buf, dev_args = self._packs[gi]
+            s = self.searcher
+            key = self._keys[(gi, kk)] = (
+                "sharded",
+                _template_key(tuple((fn, tp, dict(kw, k=kk)) for fn, tp, kw, _si in tps),
+                              dev_args, buf),
+                tuple(int(s._doc_base[si]) for *_r, si in tps), s.per_shard, s.D, kk,
+            )
+        return key
+
+    def _group_body(self, gi: int, kk: int, q: int):
+        """``body((buf,))`` -> [vals, docs] of group ``gi``: every local
+        segment's runner over ``buf``, docs shifted to global, the concat,
+        and with one process the re-rank."""
+        tps, _buf, dev_args = self._packs[gi]
+        s = self.searcher
+
+        def body(bufs):
+            parts = []
+            for fn, tp, kw, si in tps:
+                vals, docs = fn(KERNELS, *_materialize(tp, bufs[0], dev_args), **dict(kw, k=kk))
+                parts.append((vals, docs + int(s._doc_base[si])))
+            vals, docs = s._concat(parts, q, kk)
+            return list(topk_docs(vals, docs, kk) if s.D == 1 else (vals, docs))
+
+        return body
+
+    def run(self, k: int, plain: bool = False, fused: bool = True):
         """Per-query (scores f32 [k'], global docs i32 [k']) tensors on the
         device, k' = min(k, nd_pad, the group's lanes); -inf scores are
-        non-matches. ``plain=True`` runs the kernels' plain versions."""
+        non-matches. ``fused=True`` (default) replays one CUDA graph per
+        signature group, captured the first time a group of its structure
+        runs on this searcher; ``fused=False`` runs every (group, segment)
+        runner eagerly (the debug path); ``plain=True`` runs the kernels'
+        plain versions eagerly."""
         if self._kmax is not None and k > self._kmax:
             raise ValueError(
                 f"prepared for top-k <= {self._kmax} (scored-only multiterm"
@@ -733,14 +830,23 @@ class PreparedShardedBatch:
             )
         s = self.searcher
         kern = PLAIN if plain else KERNELS
-        parts = [[] for _ in self.groups]
-        for _tier, _qis, fn, args, kwargs, si, gi in self._calls:
-            kk = min(k, s.nd_pad, self.groups[gi][3])
-            vals, docs = fn(kern, *args, **dict(kwargs, k=kk))
-            parts[gi].append((vals, docs + int(s._doc_base[si])))
         out = [None] * self.num_queries
-        for (qis, _mode, _wand, cap), got in zip(self.groups, parts):
-            vals, docs = s._merge(got, len(qis), min(k, s.nd_pad, cap))
+        for gi, (qis, _mode, _wand, cap) in enumerate(self.groups):
+            kk = min(k, s.nd_pad, cap)
+            if plain or not fused or not self._packs[gi][0]:
+                parts = []
+                for _t, _q, fn, args, kwargs, si, g in self._calls:
+                    if g == gi:
+                        vals, docs = fn(kern, *args, **dict(kwargs, k=kk))
+                        parts.append((vals, docs + int(s._doc_base[si])))
+                vals, docs = s._join(*s._concat(parts, len(qis), kk), kk)
+            else:
+                vals, docs = _run_fused(
+                    "sharded", self.fused_key(gi, kk), (self._packs[gi][1],),
+                    self._group_body(gi, kk, len(qis)),
+                )
+                if s.D > 1:
+                    vals, docs = s._join(vals, docs, kk)
             for j, qi in enumerate(qis):
                 out[qi] = (vals[j], docs[j])
         return out
@@ -765,9 +871,9 @@ class PreparedShardedQuery:
         self._batch = batch
         self.searcher = batch.searcher
 
-    def run(self, k: int, plain: bool = False):
+    def run(self, k: int, plain: bool = False, fused: bool = True):
         """(scores f32 [k'], global docs i32 [k']) on the device."""
-        return self._batch.run(k, plain)[0]
+        return self._batch.run(k, plain, fused)[0]
 
     def top_k(self, k: int) -> List[Tuple[int, float]]:
         return self._batch.top_k(k)[0]

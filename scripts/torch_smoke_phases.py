@@ -1,5 +1,7 @@
-"""Run single phases of ``chip_smoke.py`` (14 the CLI, 15 embedding
-training, 16 the multi-process dryrun) on one NVIDIA GPU, and two
+"""Run single phases of ``chip_smoke.py`` on one NVIDIA GPU (8 the single
+query's breadth categories and tiers, fused and eager; 9 phrases; 12 the
+sharded executor over the three-segment index, fused and eager; 14 the
+CLI, 15 embedding training, 16 the multi-process dryrun), and two
 measurements behind their design:
 
 * ``--gloo``: whether a ``gloo`` group's ``all_gather`` takes CUDA tensors
@@ -13,8 +15,15 @@ measurements behind their design:
 Usage, from the repo root on the card's machine::
 
     python3 scripts/torch_smoke_phases.py [--gloo] [--gather-forms] \\
-        [--cli-docs N --cli-segment-docs M] [PHASE ...]
+        [--docs N] [--profile FILE] [--cli-docs N --cli-segment-docs M] [PHASE ...]
 
+``bits`` runs phase 8's tier batch and each tier's single query 30 times
+each way (eager, fused) and prints, per tier, how their scores differ from
+the first eager run's: in docs, in ulps, or in the sign of a zero.
+``--docs`` sets the first segment's docs for phases 8, 9 and 12 (5M, as in
+``chip_smoke.py``; the index of phase 12 adds a quarter of it and 1,000
+docs, built or loaded from ``.bench_cache/``); phase 12 holds the sharded
+result against ``prepare_all``'s over the same index.
 ``--cli-docs`` and ``--cli-segment-docs`` set phase 14's docs and flush
 threshold (``chip_smoke.CLI_DOCS``, ``CLI_SEGMENT_DOCS``). Failures are
 printed and the next phase runs; the exit code is 1 if one failed.
@@ -127,9 +136,87 @@ def gather_forms(torch, cs):
         torch.cuda.empty_cache()
 
 
+def score_bits(torch, cs, sr, dev, smi, runs=30):
+    """Which tier's scores differ between runs of the same call, and how:
+    phase 8's tier batch (one group per tier) and each tier's single query,
+    each run ``runs`` times eager and ``runs`` times fused, every run held
+    against the first eager run. Prints per tier the runs whose docs or
+    score bits differ, the largest distance in ulps between finite scores
+    (their int32 views, the signs equal) and the lanes that differ only in
+    the sign of a zero."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.search.scorers import BM25
+
+    scorer, k = BM25(), bench_mix.K
+    prep, tasks = cs.tier_batch(sr, scorer, k, dev)
+    runners = {f"batch {t}": (lambda fused, i=i: prep.run_grouped(fused)[i][0])
+               for i, (t, _f, _k) in enumerate(tasks)}
+    for tier, (flt, wand, knobs, dp) in bench_mix.single_tier_tasks(sr).items():
+        dq = cs.single_query(sr, flt, scorer, dev, wand, knobs, dp)
+        runners[f"single {tier}"] = (
+            lambda fused, dq=dq: tuple(t[None] for t in dq.execute_segment_async(0, k, fused=fused)))
+    for name, run in runners.items():
+        ref_v, ref_d = (t.clone() for t in run(False))
+        stats = {False: [0, 0, 0, 0], True: [0, 0, 0, 0]}  # docs, bits, max ulp, signed zeros
+        for fused in (False, True):
+            for _ in range(runs):
+                v, d = run(fused)
+                st = stats[fused]
+                if not torch.equal(d, ref_d):
+                    st[0] += 1
+                    continue
+                a, b = v.view(torch.int32), ref_v.view(torch.int32)
+                if torch.equal(a, b):
+                    continue
+                st[1] += 1
+                same = (v == ref_v) & (a != b)
+                fin = torch.isfinite(v) & torch.isfinite(ref_v) & ((a < 0) == (b < 0)) & ~same
+                st[2] = max(st[2], int((a[fin].long() - b[fin].long()).abs().max()) if fin.any() else 0)
+                st[3] += int(same.sum())
+        print(f"BITS {name:16s} over {runs} runs each way against the first eager run: "
+              f"eager docs differ {stats[False][0]}, score bits {stats[False][1]} (max "
+              f"{stats[False][2]} ulp, {stats[False][3]} signed-zero lanes); fused docs "
+              f"differ {stats[True][0]}, score bits {stats[True][1]} (max {stats[True][2]} "
+              f"ulp, {stats[True][3]} signed-zero lanes) on {smi}", flush=True)
+
+
+def run_query_phase(torch, cs, step, index, dev, smi, profile=None):
+    """Phase 8, 9 or 12 of ``chip_smoke.py`` on the segments ``index(n)``
+    gives (phase 12 with ``chip_smoke.py``'s profiler breakdown, fused and
+    eager, when ``profile`` names a file)."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec.batch import QueryBatch
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.search.scorers import BM25
+
+    scorer, k = BM25(), bench_mix.K
+    kind = torch.cuda.get_device_name(0)
+    if step == "8":
+        sr = index(1)[0]
+        cs.run_breadth(torch, sr, scorer, k, dev, smi)
+        print(cs.run_single_tiers(torch, sr, scorer, k, dev, smi))
+    elif step == "bits":
+        score_bits(torch, cs, index(1)[0], dev, smi)
+    elif step == "9":
+        sr = index(1)[0]
+        kern = {name: {} for name in kb.KERNELS}
+        print(cs.run_phrases(torch, sr, scorer, k, dev, smi, kern,
+                             cs.launch_floor(torch, dev)))
+    else:
+        srs = index(3)
+        tasks = bench_mix.task_mix(srs[0])
+        vals, docs = QueryBatch([f for _c, f in tasks], srs, scorer, wand=True,
+                                device=dev).prepare_all(k).run()
+        merged = (vals.cpu().numpy(), docs.cpu().numpy())
+        print(cs.run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phases", nargs="*", choices=["14", "15", "16"])
+    ap.add_argument("phases", nargs="*", choices=["8", "9", "12", "14", "15", "16", "bits"])
+    ap.add_argument("--docs", type=int, default=5_000_000)
+    ap.add_argument("--profile", metavar="FILE",
+                    help="phase 12: also profile a fused and an eager pass; tables to FILE.*")
     ap.add_argument("--gloo", action="store_true")
     ap.add_argument("--gather-forms", action="store_true")
     ap.add_argument("--cli-docs", type=int)
@@ -155,6 +242,21 @@ def main() -> int:
     os.makedirs(cache, exist_ok=True)
     dev = torch.device("cuda", 0)
     kb.library()
+    segments = []
+
+    def index(n):
+        # chip_smoke.py's segments: seeds 42, 43, 44 at --docs, a quarter
+        # of it and 1,000 docs
+        from iresearch_tpu_torch import bench_mix
+        from iresearch_tpu_torch.index.segment import SegmentReader
+
+        sizes = [args.docs, max(2_000, args.docs // 4), 1_000]
+        for si in range(len(segments), n):
+            data, _cached = bench_mix.load_or_build(sizes[si], cache, si)
+            segments.append(SegmentReader(f"smoke{si}" if si else "smoke", data))
+            segments[-1].dense_cache("body")
+        return segments[:n]
+
     for step in steps + args.phases:
         t0 = time.perf_counter()
         try:
@@ -163,6 +265,8 @@ def main() -> int:
                     gloo_check()
                 elif step == "gather":
                     gather_forms(torch, cs)
+                elif step in ("8", "9", "12", "bits"):
+                    run_query_phase(torch, cs, step, index, dev, smi, args.profile)
                 elif step == "14":
                     print(cs.run_cli(torch, 1_250_000, dev, smi, tmp))
                 elif step == "15":

@@ -201,7 +201,7 @@ def check_single(flt, segs, scorer, k, *, oracle=True, **kw):
     pv, pd = tq.execute_segment(0, k, plain=True)
     np.testing.assert_array_equal(pv, got[0])
     np.testing.assert_array_equal(pd, got[1])
-    return tq.call(0, k)[0]
+    return tq.single_call(0, k).tier
 
 
 def check_batch(filters, segs, scorer, k, **kw):

@@ -226,3 +226,159 @@ def test_fused_pass_equals_eager_and_jax(bench, name):
     for qi, (v, d) in enumerate(_per_query(got, len(port.queries))):
         np.testing.assert_array_equal(per[qi][0].numpy(), v)
         np.testing.assert_array_equal(per[qi][1].numpy(), d)
+
+
+# --- the single query: one fused entry per call signature ---------------------
+
+
+def _single_pair(segs, flt, wand=False, knobs=None, device_phrase=True):
+    """(port DeviceQuery, JAX DeviceQuery) of ``flt``, each plan compiled
+    under ``knobs`` in both packages."""
+    from iresearch_tpu.exec import DeviceQuery as JaxDeviceQuery
+    from iresearch_tpu_torch.exec.executor import DeviceQuery
+
+    port = DeviceQuery(flt, segs.port, to_port(BM25()), wand=wand,
+                       device_phrase=device_phrase, device=CPU)
+    ref = JaxDeviceQuery(to_jax(flt), segs.jax, BM25(), wand=wand, device_phrase=device_phrase)
+    with both_knobs(**(knobs or {})):
+        port.plan(0), ref.plan(0)
+    return port, ref
+
+
+def _single_entry(dq, k=K):
+    return B._FUSED_KINDS["single"].get(dq.single_call(0, k).fused_entry()[0])
+
+
+# the skyline tier at 20,000 docs (a grid of 160 rows): 8 x the least
+# bucket of 8 survivor rows, where the planners' default of 48 wants 384
+_SKYLINE_RATIO = 8
+
+
+@pytest.mark.parametrize("tier", sorted(["skyline", "scan", "dslice", "fold", "aux", "wand",
+                                         "direct", "sort", "join", "gridmix", "phrase"]))
+def test_single_query_fused_equals_eager_and_jax(bench, monkeypatch, tier):
+    """``execute_segment`` (fused by default) makes one "single" entry and
+    equals ``fused=False`` and the plain run bit for bit, and the JAX
+    package's ``DeviceQuery``; a second run hits that entry and returns the
+    same."""
+    import iresearch_tpu.exec.skyline as jax_skyline
+    import iresearch_tpu_torch.exec.skyline as port_skyline
+
+    if tier == "skyline":
+        for mod in (jax_skyline, port_skyline):
+            monkeypatch.setattr(mod, "SKYLINE_SCAN_RATIO", _SKYLINE_RATIO)
+    flt, wand, knobs, dp = bench_mix.single_tier_tasks(bench.port[0])[tier]
+    port, ref = _single_pair(bench, flt, wand, knobs, dp)
+    assert port.single_call(0, K).tier == ("aux" if tier == "phrase" else tier)
+    assert bool(port.plan(0).device_aux) == (tier == "phrase")
+    got = port.execute_segment(0, K)
+    entry = _single_entry(port)
+    assert entry is not None and entry.hits == 0 and not B._FUSED_CACHE
+    for other in (port.execute_segment(0, K, fused=False), port.execute_segment(0, K, plain=True)):
+        np.testing.assert_array_equal(got[0], other[0])
+        np.testing.assert_array_equal(got[1], other[1])
+    assert_topk_near(got, ref.execute_segment(0, K))
+    again = port.execute_segment(0, K)
+    assert entry.hits == 1 and len(B._FUSED_KINDS["single"]) == 1
+    np.testing.assert_array_equal(again[1], got[1])
+    np.testing.assert_array_equal(again[0], got[0])
+
+
+def test_phrase_rows_kept_once(bench):
+    """A phrase's fused entry reads the plan's rows from one buffer, and
+    the rows that the eager run reads are views of that same buffer: the
+    plan keeps one copy of them."""
+    flt, wand, knobs, dp = bench_mix.single_tier_tasks(bench.port[0])["phrase"]
+    port = _single_pair(bench, flt, wand, knobs, dp)[0]
+    call = port.single_call(0, K)
+    rows = next(x for x in call._dev_args if callable(x))
+    _key, bufs, _body = call.fused_entry()
+    flat = bufs[1]
+    assert rows.flat()[0] is flat and flat.nbytes == 5 * sum(m.numel() for m, _s in rows(B.KERNELS))
+    for m, s in rows(B.KERNELS):
+        for t in (m, s):
+            assert t.untyped_storage().data_ptr() == flat.untyped_storage().data_ptr()
+    got = port.execute_segment(0, K)
+    want = port.execute_segment(0, K, fused=False)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def _fresh_same_signature(segs, flt, others, **kw):
+    """(``flt``'s DeviceQuery, the first filter of ``others`` whose query
+    has its fused key and another eager result)."""
+    first = _single_pair(segs, flt, **kw)[0]
+    key = first.single_call(0, K).fused_entry()[0]
+    docs = first.execute_segment(0, K, fused=False)[1]
+    for f in others:
+        dq = _single_pair(segs, f, **kw)[0]
+        if dq.single_call(0, K).fused_entry()[0] == key and not np.array_equal(
+                dq.execute_segment(0, K, fused=False)[1], docs):
+            return first, f
+    raise AssertionError("no other filter of the same signature")
+
+
+def test_fresh_single_query_same_signature_hits(bench):
+    """A fresh ``DeviceQuery`` of another filter with the same tier, row
+    buckets and static arguments hits the entry that the first made (a
+    dslice term, a dense term under WAND, a phrase whose rows are copied
+    in) and returns its own ``fused=False`` result and the JAX package's,
+    the first query's result unchanged. Another ``k`` or another row
+    bucket misses."""
+    sr = bench.port[0]
+    term_at, high, _med, low = bench_mix._ranked(sr)
+    T = lambda t: F.ByTerm("body", t)  # noqa: E731
+    cases = [
+        (T(low[0]), [T(t) for t in low[1:]], {}),
+        (F.Or(T(high[0]), T(high[1])), [F.Or(T(high[i]), T(high[i + 1])) for i in range(2, 40)],
+         dict(wand=True)),
+        (F.ByPhrase("body", [term_at(30), term_at(31)]),
+         [F.ByPhrase("body", [term_at(i), term_at(i + 1)]) for i in range(10, 40)], {}),
+    ]
+    for flt, others, kw in cases:
+        first, other = _fresh_same_signature(bench, flt, others, **kw)
+        got1 = first.execute_segment(0, K)
+        kept = [a.copy() for a in got1]
+        entry = _single_entry(first)
+        n = len(B._FUSED_KINDS["single"])
+        fresh, ref = _single_pair(bench, other, **kw)
+        got2 = fresh.execute_segment(0, K)
+        assert _single_entry(fresh) is entry and entry.hits == 1
+        assert len(B._FUSED_KINDS["single"]) == n
+        want = fresh.execute_segment(0, K, fused=False)
+        np.testing.assert_array_equal(got2[0], want[0])
+        np.testing.assert_array_equal(got2[1], want[1])
+        assert not np.array_equal(got1[1], got2[1])
+        assert_topk_near(got2, ref.execute_segment(0, K))
+        np.testing.assert_array_equal(got1[1], kept[1])
+        np.testing.assert_array_equal(got1[0], kept[0])
+    # another k: another entry
+    dq = _single_pair(bench, T(low[0]))[0]
+    assert dq.single_call(0, K).fused_entry()[0] != dq.single_call(0, K - 1).fused_entry()[0]
+    # another row bucket: two High terms kept sparse (64 and 16 rows)
+    keys = []
+    for t in (high[16], high[40]):
+        q = _single_pair(bench, T(t), knobs=dict(USE_DENSE_TERMS=False))[0]
+        keys.append(q.single_call(0, K).fused_entry()[0])
+        q.execute_segment(0, K)
+    assert keys[0] != keys[1] and all(k in B._FUSED_KINDS["single"] for k in keys)
+
+
+def test_single_entries_do_not_evict_batch_entries(bench, monkeypatch):
+    """Each kind has its own LRU of at most ``_FUSED_CACHE_MAX`` entries: a
+    run of distinct single queries fills the "single" LRU and leaves the
+    batch's entry in ``_FUSED_CACHE`` (the "batch" LRU);
+    ``clear_fused_cache`` empties both."""
+    monkeypatch.setattr(B, "_FUSED_CACHE_MAX", 2)
+    port, _ref = _batches(bench)
+    prep = port.prepare(0, K)
+    prep.run_grouped()
+    dq = _single_pair(bench, _mix(bench)[0])[0]
+    keys = [dq.single_call(0, k).fused_entry()[0] for k in (K, K - 1, K - 2)]
+    for k in (K, K - 1, K - 2):
+        dq.execute_segment(0, k)
+    assert list(B._FUSED_KINDS["single"]) == keys[1:]
+    assert list(B._FUSED_CACHE) == [prep._key]
+    assert B._FUSED_KINDS["batch"] is B._FUSED_CACHE and not B._FUSED_KINDS["sharded"]
+    B.clear_fused_cache()
+    assert not B._FUSED_CACHE and not any(B._FUSED_KINDS.values())

@@ -683,7 +683,7 @@ def test_single_query_dslice_on_card(cuda_device, card_segments):
     sr = card_segments[0]
     flt = [f for c, f in bench_mix.task_mix(sr) if c == "LowTerm"][0]
     dq = DeviceQuery(flt, [sr], to_port(BM25()))
-    assert dq.call(0, 10)[0] == "dslice"
+    assert dq.single_call(0, 10).tier == "dslice"
     vals, docs = dq.execute_segment(0, 10)
     pv, pd = dq.execute_segment(0, 10, plain=True)
     np.testing.assert_array_equal(docs, pd)
@@ -823,4 +823,168 @@ def test_fused_capture_under_sync_debug_error_on_card(cuda_device, card_segments
         for (g, _q), (e, _q2) in zip(grouped, tiers.run_grouped(fused=False)):
             _agree(g, e)
     assert len(B._FUSED_CACHE) == 2
+    B.clear_fused_cache()
+
+
+# --- the single query and the sharded group on the card: one graph each ---
+
+
+SINGLE_TIERS = ["skyline", "scan", "dslice", "fold", "aux", "wand", "direct", "sort", "join",
+                "gridmix", "phrase"]
+
+
+def _card_single(sr, flt, wand=False, knobs=None, device_phrase=True):
+    """A ``DeviceQuery`` on the card, its plan compiled under ``knobs``."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec.executor import DeviceQuery
+
+    dq = DeviceQuery(flt, [sr], to_port(BM25()), wand=wand, device_phrase=device_phrase)
+    with bench_mix.planner_knobs(**(knobs or {})):
+        dq.plan(0)
+    return dq
+
+
+def _single_of(card_segments, monkeypatch, tier):
+    """The card's ``DeviceQuery`` of ``bench_mix.single_tier_tasks``'s
+    query for ``tier`` (the skyline tier at 20,000 docs with the scan
+    ratio lowered to 8)."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import skyline
+
+    if tier == "skyline":
+        monkeypatch.setattr(skyline, "SKYLINE_SCAN_RATIO", 8)
+    sr = card_segments[0]
+    flt, wand, knobs, dp = bench_mix.single_tier_tasks(sr)[tier]
+    dq = _card_single(sr, flt, wand, knobs, dp)
+    assert dq.single_call(0, 10).tier == ("aux" if tier == "phrase" else tier)
+    return dq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", SINGLE_TIERS)
+def test_single_query_graph_equals_eager_on_card(cuda_device, card_segments, monkeypatch, tier):
+    """``execute_segment_async`` captures the call into one graph under the
+    sync debug mode set to raise and replays it: the eager and the plain
+    run's result, and a second replay (a hit) the same; a replay counts
+    the launches its capture recorded."""
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.kernels import build as kb
+
+    B.clear_fused_cache()
+    dq = _single_of(card_segments, monkeypatch, tier)
+    dq.single_call(0, 10).fused_entry()  # a phrase's rows are made here, outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dq.execute_segment_async(0, 10)
+        kb.reset_launch_counts()
+        again = dq.execute_segment_async(0, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    entry = B._FUSED_KINDS["single"][dq.single_call(0, 10).fused_entry()[0]]
+    assert entry.graph is not None and entry.nodes > 0 and entry.hits == 1
+    assert {n: c for n, c in kb.launch_counts().items() if c} == entry.launches
+    assert not B._FUSED_CACHE
+    for other in (again, dq.execute_segment_async(0, 10, fused=False),
+                  dq.execute_segment_async(0, 10, plain=True)):
+        _agree(got, other)
+    B.clear_fused_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["dslice", "wand", "phrase"])
+def test_fresh_single_query_does_not_capture_again_on_card(cuda_device, card_segments,
+                                                           monkeypatch, tier):
+    """A fresh ``DeviceQuery`` of another filter with the same signature (a
+    Low term, a High disjunction under WAND, a phrase) copies its inputs
+    into the first one's entry and replays it: no capture, its own eager
+    result; the first result is unchanged."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.search import filters as PF
+
+    B.clear_fused_cache()
+    sr = card_segments[0]
+    term_at, high, _med, low = bench_mix._ranked(sr)
+    T = lambda t: PF.ByTerm("body", t)  # noqa: E731
+    first, others, kw = {
+        "dslice": (T(low[0]), [T(t) for t in low[1:]], {}),
+        "wand": (PF.Or(T(high[0]), T(high[1])),
+                 [PF.Or(T(high[i]), T(high[i + 1])) for i in range(2, 40)], dict(wand=True)),
+        "phrase": (PF.ByPhrase("body", [term_at(30), term_at(31)]),
+                   [PF.ByPhrase("body", [term_at(i), term_at(i + 1)]) for i in range(10, 40)], {}),
+    }[tier]
+    dq = _card_single(sr, first, **kw)
+    got = dq.execute_segment_async(0, 10)
+    kept = [t.clone() for t in got]
+    key = dq.single_call(0, 10).fused_entry()[0]
+    captures = []
+    real = B._FusedPass.capture
+    monkeypatch.setattr(B._FusedPass, "capture",
+                        lambda self, body: captures.append(self) or real(self, body))
+    fresh = next(q for q in (_card_single(sr, f, **kw) for f in others)
+                 if q.single_call(0, 10).fused_entry()[0] == key
+                 and not torch.equal(q.execute_segment_async(0, 10, fused=False)[1], got[1]))
+    mine = fresh.execute_segment_async(0, 10)
+    assert not captures and B._FUSED_KINDS["single"][key].hits == 1
+    _agree(mine, fresh.execute_segment_async(0, 10, fused=False))
+    assert torch.equal(got[0], kept[0]) and torch.equal(got[1], kept[1])
+    B.clear_fused_cache()
+
+
+def _card_sharded(card_segments, filters=None):
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.parallel import ShardedSearcher
+
+    if filters is None:
+        filters = [f for _c, f in bench_mix.task_mix(card_segments[0])[::8]]
+    ss = ShardedSearcher(card_segments)
+    return ss, filters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("queries", ["mix", "phrases"])
+def test_sharded_group_graph_equals_eager_on_card(cuda_device, card_segments, monkeypatch,
+                                                  queries):
+    """``prepare_many(queries, wand=True).run(10)`` (the mix, or phrases in
+    the keys form) replays one graph per signature group, captured under
+    the sync debug mode set to raise: the eager and the plain run's
+    result; a fresh ``prepare_many`` of the queries replays every group's
+    graph with no capture, and the first result survives its replays."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.search import filters as PF
+
+    B.clear_fused_cache()
+    term_at = bench_mix._ranked(card_segments[0])[0]
+    phrases = [PF.ByPhrase("body", [term_at(i), term_at(i + 1)]) for i in (20, 30)] + [
+        PF.ByPhrase("body", [term_at(20), term_at(21), (1, term_at(22))])]
+    ss, filters = _card_sharded(card_segments, phrases if queries == "phrases" else None)
+    prep = ss.prepare_many(filters, to_port(BM25()), wand=True, k_max=10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = prep.run(10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    entries = list(B._FUSED_KINDS["sharded"].values())
+    assert len(entries) == len(prep.groups) and all(e.graph is not None for e in entries)
+    assert all(kw.get("phrase_keys") for *_r, kw in prep.calls) == (queries == "phrases")
+    kept = [(v.clone(), d.clone()) for v, d in got]
+    for g, e in zip(got, prep.run(10, fused=False)):
+        _agree(g, e)
+    for g, e in zip(got, prep.run(10, plain=True)):
+        _agree(g, e)
+    captures = []
+    real = B._FusedPass.capture
+    monkeypatch.setattr(B._FusedPass, "capture",
+                        lambda self, body: captures.append(self) or real(self, body))
+    fresh = ss.prepare_many(filters[::-1], to_port(BM25()), wand=True, k_max=10)
+    other = fresh.run(10)
+    assert not captures and all(e.hits == 1 for e in entries)
+    for g, e in zip(other, fresh.run(10, fused=False)):
+        _agree(g, e)
+    for (v, d), (kv, kd) in zip(got, kept):
+        assert torch.equal(v, kv) and torch.equal(d, kd)
     B.clear_fused_cache()

@@ -138,18 +138,33 @@ def _groups(jprep, pprep):
     return want, got
 
 
+_JAX_RUNS = {}
+
+
+def _jax_run(js, filters, scorer, wand, k):
+    """(prepared batch, per-query (vals, docs) numpy) of the JAX searcher
+    ``js``, kept per searcher and inputs: a later test of the same inputs
+    reuses them instead of compiling again (the entry keeps ``js`` alive,
+    so no other searcher takes its ``id``)."""
+    key = (id(js), tuple(filters), scorer, wand, k)
+    if key not in _JAX_RUNS:
+        jprep = js.prepare_many(filters, scorer, wand=wand)
+        _JAX_RUNS[key] = (js, jprep, [(np.asarray(v), np.asarray(d)) for v, d in jprep.run(k)])
+    return _JAX_RUNS[key][1:]
+
+
 def _hold(filters, searchers, port_segs, scorer, wand, k=10):
     """One ``prepare_many`` in each package over ``filters``: the same
     groups and tiers, every query's top-k through the gate against the JAX
     result and against the port's ``HostQuery`` over all segments; returns
     both prepared batches, the JAX package's first."""
     js, ps = searchers
-    jprep = js.prepare_many(filters, scorer, wand=wand)
+    jprep, jrun = _jax_run(js, filters, scorer, wand, k)
     pprep = ps.prepare_many([to_port(f) for f in filters], to_port(scorer), wand=wand)
     want, got = _groups(jprep, pprep)
     assert got == want
     assert pprep._kmax == jprep._kmax
-    for flt, (jv, jd), (pv, pd) in zip(filters, jprep.run(k), pprep.run(k)):
+    for flt, (jv, jd), (pv, pd) in zip(filters, jrun, pprep.run(k)):
         assert_topk_near((pv.numpy(), pd.numpy()), (np.asarray(jv), np.asarray(jd)))
         hits = [(int(d), float(v)) for v, d in zip(pv.numpy(), pd.numpy()) if np.isfinite(v)]
         assert_topk_equiv(hits, HostQuery(to_port(flt), port_segs, to_port(scorer)).top_k(k))
@@ -375,6 +390,120 @@ def test_searcher_needs_a_device_and_port_objects(segs):
         ps.prepare_many([to_port(QUERIES[0])], BM25())
     with pytest.raises(TypeError, match="Filter"):
         ps.prepare_many([QUERIES[0]], to_port(BM25()))
+
+
+# --- the fused pass: one CUDA graph per signature group ---------------------
+
+PHRASES = [
+    F.ByPhrase("body", ["ant", "bee"]),
+    F.ByPhrase("body", ["ant", (2, "bee"), "cat"]),
+    F.Or(F.ByTerm("body", "owl"), F.ByPhrase("body", ["fox", "ant"])),
+    F.BySamePosition([("body", "ant"), ("body", "ant")]),
+]
+FUSED_CASES = {
+    "bm25": (QUERIES, BM25(), False),
+    "tfidf": (QUERIES, TFIDF(), False),
+    "wand": (WAND_QUERIES, BM25(), True),
+    "keys": (PHRASES, BM25(), False),
+}
+
+
+def _sharded_entries(pprep, k=10):
+    from iresearch_tpu_torch.exec import batch as B
+
+    return [B._FUSED_KINDS["sharded"].get(pprep.fused_key(gi, min(k, pprep.searcher.nd_pad, g[3])))
+            for gi, g in enumerate(pprep.groups)]
+
+
+def _same_runs(got, want):
+    for (gv, gd), (wv, wd) in zip(got, want):
+        assert torch.equal(gd, wd) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_sharded_equals_eager_and_jax(searchers, segs, case):
+    """``run(k)`` (fused by default) makes one "sharded" entry per
+    signature group and equals ``run(fused=False)`` and the plain run bit
+    for bit, and the JAX package's ``ShardedSearcher`` (through ``_hold``,
+    which also holds it against ``HostQuery``); the keys form's phrases
+    run inside the groups' entries."""
+    from iresearch_tpu_torch.exec import batch as B
+
+    B.clear_fused_cache()
+    filters, scorer, wand = FUSED_CASES[case]
+    _jprep, pprep = _hold(filters, searchers, segs.port, scorer, wand)
+    entries = _sharded_entries(pprep)
+    assert all(e is not None for e in entries) and len(B._FUSED_KINDS["sharded"]) == len(entries)
+    assert all(_keys_form(pprep)) == (case == "keys")
+    got = pprep.run(10)
+    assert all(e.hits == 1 for e in entries)
+    _same_runs(got, pprep.run(10, fused=False))
+    _same_runs(got, pprep.run(10, plain=True))
+    B.clear_fused_cache()
+
+
+def test_fresh_prepare_many_hits_per_group(searchers, segs):
+    """A fresh ``prepare_many`` of the same queries (and one with two
+    queries of a group swapped, so that its packed arrays differ) hits
+    every group's entry that the first made, phrases in the keys form
+    among them: no new entry, each result its own eager one, the first
+    call's tensors unchanged."""
+    from iresearch_tpu_torch.exec import batch as B
+
+    B.clear_fused_cache()
+    _js, ps = searchers
+    # hen and ibis share a group, as jay and kite do; the phrases run in
+    # the keys form, whose fresh ``_KeysRows`` must match the first's
+    filters = [to_port(f) for f in WAND_QUERIES + PHRASES[:2]] + [
+        to_port(F.ByTerm("body", w)) for w in ("hen", "ibis", "jay", "kite")]
+    first = ps.prepare_many(filters, to_port(BM25()), wand=True)
+    assert any(_keys_form(first))
+    got1 = first.run(10)
+    kept = [(v.clone(), d.clone()) for v, d in got1]
+    entries = _sharded_entries(first)
+    a, b = next(qis[:2] for qis, *_r in first.groups
+                if len(qis) >= 2 and filters[qis[0]] != filters[qis[1]])
+    swapped = list(filters)
+    swapped[a], swapped[b] = swapped[b], swapped[a]
+    for n, fl in enumerate((swapped, filters), start=1):
+        fresh = ps.prepare_many(fl, to_port(BM25()), wand=True)
+        got = fresh.run(10)
+        assert _sharded_entries(fresh) == entries and all(e.hits == n for e in entries)
+        assert len(B._FUSED_KINDS["sharded"]) == len(entries)
+        _same_runs(got, fresh.run(10, fused=False))
+        if fl is swapped:
+            assert not torch.equal(got1[a][1], got[a][1]) and torch.equal(got1[a][1], got[b][1])
+    _same_runs(got1, kept)
+    B.clear_fused_cache()
+
+
+def test_packed_upload_equals_per_array_uploads(scale_searchers, monkeypatch):
+    """Every host-made argument of every group's calls (rows, avgdl,
+    leaf_min, dense starts and weights, WAND bounds, sparse aux pairs,
+    phrase keys and weights), rebuilt from the group's one packed buffer,
+    equals the per-array upload it replaces (``ShardedSearcher._up``):
+    dtype, shape and bits, each section 256-byte aligned; the segments'
+    resident tensors pass as they are."""
+    from test_torch_fused import _compare_tree
+
+    import iresearch_tpu_torch.parallel.sharded as sh
+
+    _js, ps = scale_searchers
+    seen = []
+    real = sh._pack_args
+    monkeypatch.setattr(sh, "_pack_args", lambda trees, dev: seen.append(trees) or real(trees, dev))
+    for wand in (False, True):
+        seen.clear()
+        prep = ps.prepare_many([to_port(f) for f in SCALE_QUERIES], to_port(BM25()), wand=wand)
+        assert len(seen) == len(prep.groups)
+        n = 0
+        for gi, trees in enumerate(seen):
+            calls = [c for c in prep._calls if c[6] == gi]
+            assert len(calls) == len(trees) == len(ps.local)
+            for c, raw in zip(calls, trees):
+                n += _compare_tree(c[3], raw, prep._packs[gi][1])
+        tiers = {c[0] for c in prep.calls}
+        assert n > 0 and ({"wand", "gridmix", "direct"} <= tiers if wand else "aux" in tiers), tiers
 
 
 _RANK = r"""

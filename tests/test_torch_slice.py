@@ -185,7 +185,7 @@ for q, (tier, flt, knobs) in zip(qb.queries, tt):
         dq.plan(0)
     v, d = dq.execute_segment(0, 10)
     assert v.shape == d.shape and 0 < len(v) <= 10
-    single.append(dq.call(0, 10)[0])
+    single.append(dq.single_call(0, 10).tier)
 prep = qb.prepare(0, 10)
 assert [c[0] for c in prep.calls] == [t for t, _f, _k in tt], prep.calls
 assert single == [t for t, _f, _k in tt], single
