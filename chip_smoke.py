@@ -171,12 +171,31 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    each label exactly for the docs ``predict`` gave it. Prints the
    seconds per step, the peak device memory and the loss;
 16. ``dryrun_multihost(num_processes=2, devices_per_proc=4,
-   device="cuda")``: two processes of one ``gloo`` group on the one card,
-   each holding 4 of the 8 segments of the JAX dryrun's 1,536 docs; both
-   must print ``MULTIHOST_OK`` (exact parity with the host oracle, no
-   ``jax`` or ``iresearch_tpu`` module loaded), their launches and a
-   captured graph of their local part per signature group
-   (``MULTIHOST_FUSED``; the ``all_gather`` runs after the replay).
+   device="cuda")``: two processes of one ``gloo`` group on one card (the
+   first: eight cards would give each process four of its own), each
+   holding 4 of the 8 segments of the JAX dryrun's 1,536 docs in 4
+   shards; both must print ``MULTIHOST_OK`` (exact parity with the host
+   oracle, no ``jax`` or ``iresearch_tpu`` module loaded), their launches
+   and a captured graph per signature group on each of their shards
+   (``MULTIHOST_FUSED``; the ``all_gather`` runs after the replays);
+17. the mesh of devices over phase 10's index: the 400-query mix through
+   ``ShardedSearcher(srs, devices=...)``, over every visible card (one
+   shard each) where there are two or more, else four shards on cuda:0
+   (the three segments, one shard without a segment); prints the cards
+   and shards on a line of their own. The first pass captures every
+   group on every shard as in phase 12 (per card the pool growth), the
+   second only replays with no synchronise; K3's scored form must launch
+   on every shard that holds a segment (its launches per shard printed),
+   every wrapper call of every shard is held bit for bit against its
+   plain version, and the result against the first and the eager pass,
+   phase 12's one-shard result (docs equal, scores rtol 1e-5) and phase
+   10's ``prepare_all``; the gather alone (copies onto the first card,
+   concat, re-rank) between events; ``MESH_PASSES`` timed passes each
+   way; then the JAX package's ``dryrun_multichip`` on the same devices
+   (256 docs a segment, one segment a shard, written by the port's own
+   writer; term, WAND Or, min-match, And, phrase and gridmix queries
+   against the host oracle, fused against eager, every wrapper call
+   against plain).
 
 The port and this script import nothing of ``jax`` or of the JAX package
 ``iresearch_tpu``; the run fails if either was loaded.
@@ -187,7 +206,8 @@ phase 6 (a graph replay counts the launches its capture recorded), the
 tier batch of phase 8, one replay of each tier's single query, the rows
 and one replay of phase 9's queries, the replayed index pass of phase
 10, one replayed sharded pass of phase 12, the replayed pass over phase
-13's written index, phase 14's device search and phase 16's workers),
+13's written index, phase 14's device search, phase 16's workers and
+phase 17's replayed mesh pass and dryrun),
 then, as its last line, ``{"ok": true,
 "device": {...}}``. Any failure raises: the exit code is not 0 and the
 last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
@@ -207,6 +227,7 @@ import copy
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -236,6 +257,8 @@ PASSES = 20  # timed batched passes
 SHARDED_PASSES = 3
 SHARDED_REQUESTS = 5  # fresh prepare_many requests served in phase 12
 SINGLE_REPS = 20  # timed runs per breadth category and tier (bench.py's 20)
+MESH_PASSES = 2  # timed mesh passes each way (phase 17)
+MESH_SHARDS_ONE_CARD = 4  # phase 17's shards where one card is visible
 GRAPH_INNER = 10  # copies of a call list in one captured graph
 GRAPH_REPLAYS = 20  # timed replays of that graph
 
@@ -333,7 +356,7 @@ def launch_floor(torch, dev):
 
     if not hasattr(kb, "launch_noop"):
         return None
-    return graph_ms(torch, lambda: kb.launch_noop(torch.cuda.current_stream(dev).cuda_stream))
+    return graph_ms(torch, lambda: kb.launch_noop(torch.cuda.current_stream(dev)))
 
 
 def timed(torch, kernel, plain, n_launches, nbytes, flops, floor, library=None):
@@ -803,15 +826,23 @@ def profile_passes(torch, run, path, kind, smi, calls=(), passes=5):
     from torch.profiler import ProfilerActivity, profile
 
     run()
-    torch.cuda.synchronize()
+    sync_all(torch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         for _ in range(passes):
             run()
-        torch.cuda.synchronize()
+        sync_all(torch)
         wall = time.perf_counter() - t1
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.device_time_total for e in kernels) / 1e6  # us -> s
+    per_card = Counter()
+    for e in kernels:
+        per_card[e.device_index] += e.device_time_total / 1e6
+    if len(per_card) > 1:  # several cards: the idle share of each
+        print("profile per card: " + ", ".join(
+            f"cuda:{c} busy {b / passes * 1e3:.4f} ms/pass (idle share {1 - b / wall:.4f})"
+            for c, b in sorted(per_card.items())))
+    wall_all = wall * max(1, len(per_card))  # the cards' time, busy or idle
     by_name = Counter()
     count = Counter()
     for e in kernels:
@@ -822,7 +853,7 @@ def profile_passes(torch, run, path, kind, smi, calls=(), passes=5):
         f.write(prof.key_averages().table(sort_by="device_time_total", row_limit=60))
     print(f"profile: {passes} passes, wall {wall / passes * 1e3:.4f} ms/pass, "
           f"device busy {busy / passes * 1e3:.4f} ms/pass "
-          f"(idle share {1 - busy / wall:.4f}), {len(kernels) / passes:.1f} "
+          f"(idle share {1 - busy / wall_all:.4f}), {len(kernels) / passes:.1f} "
           f"device ops/pass; table in {path}")
     for name, us in by_name.most_common(8):
         print(f"  {us / passes / 1e3:.4f} ms/pass  {name[:100]}")
@@ -835,7 +866,7 @@ def profile_passes(torch, run, path, kind, smi, calls=(), passes=5):
     from iresearch_tpu_torch.exec.batch import KERNELS
 
     stats = dict(wall_ms=wall / passes * 1e3, busy_ms=busy / passes * 1e3,
-                 idle_share=1 - busy / wall, device_ops=len(kernels) / passes)
+                 idle_share=1 - busy / wall_all, device_ops=len(kernels) / passes)
     if not calls:
         return stats
     per_tier = Counter()
@@ -1576,16 +1607,23 @@ def run_serving(torch, srs, tasks, scorer, k, dev, smi, kind):
           f"requests 2-{SERVE_REQUESTS}, on {kind} ({smi})")
 
 
+def sync_all(torch):
+    """Wait for every visible card."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def sharded_first_pass(torch, prep, k, what, smi):
     """The first run of a prepared sharded batch on a fresh cache: every
-    signature group's miss (warm-up, capture, replay) under PyTorch's sync
-    debug mode set to raise, then one fetch. Prints per group its miss ms
-    (warm-up and capture), capture ms, graph nodes, launches per replay,
-    the bytes its entry holds (its buffer copy and its output) and what
-    its warm-up and capture added to the reserve, and the
-    device bytes the graph pool grew by (reserved after, the allocator's
-    cache emptied before and after, less before). Returns ((vals, docs)
-    tensors [Q, k], the entries in group order)."""
+    signature group's miss on every shard (warm-up, capture, replay) under
+    PyTorch's sync debug mode set to raise, then one fetch. Prints per
+    group its miss ms (warm-up and capture), capture ms, graph nodes,
+    launches per replay, the bytes its entry holds (its buffer copies and
+    outputs) and what its warm-ups and captures added to the reserve, with
+    K3's scored launches on each shard where it has more than one, and
+    per card the device bytes the graph pool grew by (reserved after, the
+    allocator's cache emptied before and after, less before). Returns
+    ((vals, docs) tensors [Q, k], the entries in group order)."""
     from iresearch_tpu_torch.exec import batch as B
 
     for gi, g in enumerate(prep.groups):
@@ -1595,15 +1633,16 @@ def sharded_first_pass(torch, prep, k, what, smi):
     real = B._FusedPass.capture
 
     def timed(self, body):
-        r = torch.cuda.memory_reserved()
+        r = torch.cuda.memory_reserved(self.device)
         t = time.perf_counter()
         real(self, body)
         misses[id(self)] = time.perf_counter() - t
-        grew_by[id(self)] = torch.cuda.memory_reserved() - r
+        grew_by[id(self)] = torch.cuda.memory_reserved(self.device) - r
 
-    torch.cuda.synchronize()
+    cards = sorted({d.index for d in prep.searcher.mesh.devices})
+    sync_all(torch)
     torch.cuda.empty_cache()
-    r0 = torch.cuda.memory_reserved()
+    r0 = {c: torch.cuda.memory_reserved(c) for c in cards}
     B._FusedPass.capture = timed
     t1 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
@@ -1614,26 +1653,31 @@ def sharded_first_pass(torch, prep, k, what, smi):
     finally:
         torch.cuda.set_sync_debug_mode("default")
         B._FusedPass.capture = real
-    torch.cuda.synchronize()
+    sync_all(torch)
     first_ms = (time.perf_counter() - t1) * 1e3
     torch.cuda.empty_cache()
-    grew = torch.cuda.memory_reserved() - r0
+    grew = {f"cuda:{c}": torch.cuda.memory_reserved(c) - r0[c] for c in cards}
     cache = B._FUSED_KINDS["sharded"]
     entries = [cache[prep.fused_key(gi, min(k, prep.searcher.nd_pad, g[3]))]
                for gi, g in enumerate(prep.groups)]
     tiers = {qis[0]: t for t, qis, *_r in prep.calls}
+    passes = [p for e in entries for p in e.passes]
     for gi, (e, g) in enumerate(zip(entries, prep.groups)):
-        own = sum(b.nbytes for b in e.bufs) + e.out.nbytes
+        own = sum(sum(b.nbytes for b in p.bufs) + p.out.nbytes for p in e.passes)
+        launches = sum((Counter(p.launches) for p in e.passes), Counter())
+        shards = ("" if len(e.passes) == 1 else
+                  f", K3 scored per shard {[p.launches.get('decode_score_rows', 0) for p in e.passes]}")
         print(f"  {what} group {gi} ({tiers[g[0][0]]}, Q={len(g[0])}): miss (warm-up and "
-              f"capture) {misses[id(e)] * 1e3:.4f} ms, capture {e.capture_s * 1e3:.4f} ms, "
-              f"{e.nodes} graph nodes, launches per replay {e.launches}, entry's own "
-              f"buffers {own} bytes, the reserve grew by {grew_by[id(e)]} bytes")
+              f"capture) {sum(misses[id(p)] for p in e.passes) * 1e3:.4f} ms, capture "
+              f"{sum(p.capture_s for p in e.passes) * 1e3:.4f} ms, "
+              f"{sum(p.nodes for p in e.passes)} graph nodes in {len(e.passes)} graph(s), "
+              f"launches per replay {dict(launches)}{shards}, entry's own buffers {own} "
+              f"bytes, the reserve grew by {sum(grew_by[id(p)] for p in e.passes)} bytes")
     print(f"{what} fused: first pass (every group's warm-up, capture under the sync debug "
           f"mode set to raise, replay) {first_ms:.4f} ms, of it capture "
-          f"{sum(e.capture_s for e in entries) * 1e3:.4f} ms host over {len(entries)} "
-          f"groups, {sum(e.nodes for e in entries)} graph nodes; the graph pool and "
-          f"entries grew the reserve by {grew} bytes ({grew // max(1, len(entries))} a "
-          f"group) on {smi}")
+          f"{sum(p.capture_s for p in passes) * 1e3:.4f} ms host over {len(entries)} "
+          f"groups in {len(passes)} graphs, {sum(p.nodes for p in passes)} graph nodes; the "
+          f"graph pool and entries grew the reserve by {grew} bytes per card on {smi}")
     return (vals, docs), entries
 
 
@@ -1643,7 +1687,8 @@ def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
     k_max=k).run(k)``, one graph replayed per signature group, held against
     its eager run and phase 10's ``prepare_all`` result ``merged``; then
     ``SHARDED_REQUESTS`` fresh ``prepare_many`` requests on an empty cache.
-    Returns the launches of one replayed pass."""
+    Returns the launches of one replayed pass and its result (vals, docs)
+    as numpy arrays."""
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.exec import batch as B
     from iresearch_tpu_torch.exec.phrase import PhraseKeysSpec
@@ -1664,7 +1709,8 @@ def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
           f"dense layout: {len(lay.terms)} eligible terms, stride {lay.stride} rows, rows per "
           f"class {lay.rows_c}; searcher device bytes {ss.device_bytes} (alive, norms, "
           f"uniform pools; allocated {torch.cuda.memory_allocated(dev)} bytes); prepare "
-          f"{prep_s:.3f} s, packed uploads {[p[1].nbytes for p in prep._packs]} bytes on {smi}")
+          f"{prep_s:.3f} s, packed uploads "
+          f"{[p[1].nbytes for packs in prep._packs for p in packs if p is not None]} bytes on {smi}")
     tiers = {}
     for t, qis, *_r in prep.calls:
         tiers[id(qis)] = (t, len(qis))
@@ -1783,7 +1829,7 @@ def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
           f"{sync_ms(torch, lambda: one.run(k)):.4f} ms/query fused, "
           f"{sync_ms(torch, lambda: one.run(k, fused=False)):.4f} eager, synchronised "
           f"({SINGLE_REPS} runs) on {smi}")
-    return launches
+    return launches, (vals, docs)
 
 
 def run_sharded_serving(torch, ss, filters, scorer, k, smi, kind):
@@ -1831,6 +1877,186 @@ def run_sharded_serving(torch, ss, filters, scorer, k, smi, kind):
           f"{[round(x, 4) for x in run_ms[1:]]} ms; "
           f"{(n * (SHARDED_REQUESTS - 1)) / (sum(prep_ms[1:]) + sum(run_ms[1:])) * 1e3:.1f} "
           f"QPS over requests 2-{SHARDED_REQUESTS} on {kind} ({smi})")
+
+
+def mesh_of_cards(torch):
+    """Phase 17's mesh: every visible card, one shard each, where there are
+    two or more; else four shards on cuda:0."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * MESH_SHARDS_ONE_CARD
+
+
+def run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one_shard, profile):
+    """Phase 17: the 400-query mix over phase 10's index through a mesh of
+    devices, ``ShardedSearcher(srs, devices=mesh_of_cards()).prepare_many(
+    mix, wand=True, k_max=k).run(k)``: one graph per signature group and
+    shard, the shards' candidates gathered onto the first card. The first
+    pass captures every group on every shard under the sync debug mode (as
+    in phase 12); the second only replays, with no synchronise, and K3's
+    scored form must launch on every shard that holds a segment; every
+    wrapper call of every shard is held bit for bit against its plain
+    version; the result against the first pass, the eager pass, phase
+    12's one-shard result ``one_shard`` (docs equal, scores rtol 1e-5) and
+    phase 10's ``prepare_all`` result ``merged`` (the exactness gate).
+    Then the gather alone (copies onto the first card, concat, re-rank:
+    ms between events with its inputs ready), ``MESH_PASSES`` timed passes
+    each way and JAX's ``dryrun_multichip`` on the same devices
+    (``run_mesh_dryrun``). Returns the launches of one replayed pass and
+    of the dryrun, summed."""
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.parallel import ShardedSearcher
+
+    B.clear_fused_cache()
+    devices = mesh_of_cards(torch)
+    cards = sorted({d.index for d in devices})
+    filters = [f for _c, f in tasks]
+    t1 = time.perf_counter()
+    ss = ShardedSearcher(srs, devices=devices)
+    prep = ss.prepare_many(filters, scorer, wand=True, k_max=k)
+    sync_all(torch)
+    prep_s = time.perf_counter() - t1
+    print(f"mesh: {len(cards)} distinct card(s) {cards}, {ss.D} shards (S={ss.S}, per_shard="
+          f"{ss.per_shard}); shards (index, device, segments) "
+          f"{[(g, str(d), segs) for g, d, segs in ss.shards]}; searcher device bytes "
+          f"{ss.device_bytes}; prepare {prep_s:.3f} s, "
+          f"{sum(p is not None for packs in prep._packs for p in packs)} packed uploads on {smi}")
+    (vals_t, docs_t), entries = sharded_first_pass(torch, prep, k, "mesh pass", smi)
+    kb.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = prep.run(k)
+        vals2 = torch.stack([v for v, _d in out])
+        docs2 = torch.stack([d for _v, d in out])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    packed = torch.stack([vals2.view(torch.int32), docs2]).cpu().numpy()
+    launches = kb.launch_counts()
+    if any(e.hits != 1 for e in entries):
+        raise AssertionError("mesh pass: the second pass did not hit every group")
+    live = [(g, d) for g, d, segs in ss.shards if segs]
+    k3 = Counter()
+    for e in entries:
+        for (g, d), p in zip(live, e.passes):
+            if p.device != d:
+                raise AssertionError(f"mesh: shard {g}'s graph on {p.device}, not {d}")
+            k3[f"shard {g} on {d}"] += p.launches.get("decode_score_rows", 0)
+    print(f"mesh pass: {sum(len(e.passes) for e in entries)} graph replays over "
+          f"{len(entries)} groups with no synchronise, one fetch of {packed.nbytes} bytes on "
+          f"{vals2.device}; launches per pass {launches}; K3 scored per shard {dict(k3)}")
+    if len(k3) != len(live) or not all(k3.values()):
+        raise AssertionError(f"mesh: K3's scored form did not launch on every shard: {dict(k3)}")
+    if vals2.device != devices[0] or packed.shape[1:] != (len(tasks), k):
+        raise AssertionError(f"mesh pass: on {vals2.device}, shape {packed.shape}")
+    same_results(torch, [(vals_t, docs_t)], [(vals2, docs2)], "mesh pass: first and second fused run")
+    eager = prep.run(k, fused=False)
+    same_results(torch, [(vals2, docs2)], [(torch.stack([v for v, _d in eager]),
+                                           torch.stack([d for _v, d in eager]))],
+                 "mesh pass: fused and eager")
+    vals, docs = packed[0].view(np.float32), packed[1]
+    np.testing.assert_array_equal(docs, one_shard[1])
+    np.testing.assert_allclose(vals, one_shard[0], rtol=1e-5, atol=0.0)
+    print(f"mesh pass vs phase 12's one-shard pass: {len(tasks)} queries, docs equal, scores "
+          f"bit-equal in {int((vals.view(np.int32) == one_shard[0].view(np.int32)).all(1).sum())}"
+          f" of {len(tasks)} queries, the others within rtol 1e-5")
+    gv, gd = merged
+    for qi in range(len(tasks)):
+        fin = np.isfinite(gv[qi])
+        assert_gate(vals[qi], docs[qi], gd[qi][fin], gv[qi][fin], f"mesh q{qi} vs prepare_all")
+    print(f"mesh pass vs prepare_all: {len(tasks)} queries pass the exactness gate")
+    t1 = time.perf_counter()
+    checked = check_calls(torch, prep, "mesh, every shard")
+    print(f"mesh pass, wrapper calls of every shard held against plain: {dict(checked)} "
+          f"({time.perf_counter() - t1:.3f} s)")
+    for name, n in launches.items():
+        if n > checked[name]:
+            raise AssertionError(f"kernel {name}: {n} launches in the mesh pass, fewer checked")
+    # the gather alone: every group's shard candidates of one pass, copied
+    # onto the first card, concatenated and re-ranked, inputs ready
+    joins = []
+    real = ss._join
+    ss._join = lambda outs, q, kk: joins.append((outs, q, kk)) or real(outs, q, kk)
+    try:
+        prep.run(k)
+    finally:
+        del ss._join
+    sync_all(torch)
+    if ss.D > 1:
+        gather = cuda_ms(torch, lambda: [real(*a) for a in joins], iters=10)
+        print(f"mesh gather (copies of {sum(o[0].nbytes + o[1].nbytes for a in joins for o in a[0] if o is not None)} "
+              f"candidate bytes onto {devices[0]}, concat, re-rank; {len(joins)} groups): "
+              f"{gather:.4f} ms a pass between events on {smi}")
+    both_ways(torch, lambda fused: prep.run(k, fused=fused), len(tasks), "mesh passes", smi,
+              kind, passes=MESH_PASSES)
+    if profile:
+        for fused in (True, False):
+            profile_passes(torch, lambda: prep.run(k, fused=fused),
+                           f"{profile}.mesh.{'fused' if fused else 'eager'}", kind, smi, passes=1)
+    del prep, ss, eager, out
+    B.clear_fused_cache()
+    return Counter(launches) + run_mesh_dryrun(torch, devices, smi)
+
+
+def run_mesh_dryrun(torch, devices, smi):
+    """Phase 17, the JAX package's ``dryrun_multichip`` on the mesh's
+    devices: 256 docs a segment, one segment a shard
+    (``parallel/multihost.py:_build_reader``, the port's own writer), the
+    uniform dense layout active, a search through ``search_arrays``, then
+    term, WAND Or, min-match, And, phrase and gridmix queries in one
+    ``prepare_many(wand=True)``: the top-5 against the host oracle, fused
+    against eager, every wrapper call held against plain. Returns the
+    launches of the fused run."""
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.parallel import ShardedSearcher
+    from iresearch_tpu_torch.parallel.multihost import _build_reader
+    from iresearch_tpu_torch.search import filters as F
+    from iresearch_tpu_torch.search.host_eval import search as host_search
+    from iresearch_tpu_torch.search.scorers import BM25
+
+    t1 = time.perf_counter()
+    D = len(devices)
+    reader = _build_reader(num_docs=256 * D, segments=D)
+    ss = ShardedSearcher(list(reader.segments), devices=devices)
+    if (ss.D, ss.per_shard) != (D, 1) or not ss._dense_layout("body").terms:
+        raise AssertionError(f"mesh dryrun: D={ss.D}, per_shard={ss.per_shard}, no dense grid?")
+    vals, _docs = ss.search_arrays(F.Or(F.ByTerm("body", "alpha"), F.ByTerm("body", "beta")),
+                                   BM25(), k=5)
+    if vals.shape != (5,) or not math.isfinite(float(vals[0])):
+        raise AssertionError(f"mesh dryrun: search_arrays gave {vals}")
+    queries = [
+        F.ByTerm("body", "alpha"),
+        F.Or(*[F.ByTerm("body", w) for w in ("alpha", "beta", "gamma", "delta")]),
+        F.Or(F.ByTerm("body", "alpha"), F.ByTerm("body", "beta"),
+             F.ByTerm("body", "gamma"), min_match=2),
+        F.And(F.ByTerm("body", "alpha"), F.ByTerm("body", "beta")),
+        F.ByPhrase("body", ["alpha", "beta"]),
+        F.Or(F.ByTerm("body", "alpha"), F.ByTerm("body", "pi")),
+    ]
+    prep = ss.prepare_many(queries, BM25(), wand=True)
+    prep.run(5)  # the captures
+    kb.reset_launch_counts()
+    got = prep.top_k(5)
+    launches = kb.launch_counts()
+    for q, hits in zip(queries, got):
+        want = host_search(reader, q, k=5)
+        assert_gate(np.array([v for _d, v in hits], np.float32), np.array([d for d, _v in hits]),
+                    np.array([d for d, _v in want]), np.array([v for _d, v in want], np.float32),
+                    f"mesh dryrun {q}")
+    same_results(torch, [tuple(torch.stack(x) for x in zip(*prep.run(5)))],
+                 [tuple(torch.stack(x) for x in zip(*prep.run(5, fused=False)))],
+                 "mesh dryrun: fused and eager")
+    checked = check_calls(torch, prep, "mesh dryrun")
+    tiers = sorted({c[0] for c in prep.calls})
+    print(f"mesh dryrun (JAX's dryrun_multichip): {len(reader.segments)} segments of 256 docs "
+          f"over {D} shards on {sorted({str(d) for d in devices})}, {len(queries)} queries in "
+          f"tiers {tiers}: the top-5 of each passes the gate against the host oracle; "
+          f"launches {launches}, wrapper calls checked {dict(checked)}; "
+          f"{time.perf_counter() - t1:.3f} s on {smi}")
+    B.clear_fused_cache()
+    return Counter(launches)
 
 
 def run_invert(torch, num_docs, seed, dev, smi):
@@ -2391,15 +2617,16 @@ def run_multihost(smi):
             raise AssertionError(f"multihost worker {pid}:\n{out[-2000:]}")
         launches = json.loads(m.group(1))
         g = re.search(rf"^MULTIHOST_FUSED process={pid} groups=(\d+) entries=(\d+) "
-                      rf"captured=(\d+) nodes=(\d+)$", out, re.M)
-        if g is None or not int(g.group(1)) >= int(g.group(2)) == int(g.group(3)) > 0:
-            raise AssertionError(f"multihost worker {pid}: its groups' graphs not captured:"
-                                 f"\n{out[-2000:]}")
+                      rf"shards=4 passes=(\d+) captured=(\d+) nodes=(\d+)$", out, re.M)
+        if g is None or not int(g.group(1)) >= int(g.group(2)) > 0 \
+                or not 4 * int(g.group(2)) == int(g.group(3)) == int(g.group(4)):
+            raise AssertionError(f"multihost worker {pid}: its groups' graphs not captured on "
+                                 f"each of its 4 shards:\n{out[-2000:]}")
         print(f"multihost worker {pid}: {ok.group(0)}; launches per replay {launches} in its "
-              f"groups' tiers {m.group(2)}; {g.group(0)} (a graph of its local part per "
-              f"group, the all_gather after the replay)")
+              f"groups' tiers {m.group(2)}; {g.group(0)} (a graph per group on each of its "
+              f"shards, the all_gather after the replays)")
         total.update(launches)
-    print(f"multihost dryrun: 2 processes on one card, 1,536 docs in 8 segments, "
+    print(f"multihost dryrun: 2 processes of 4 shards each, 1,536 docs in 8 segments, "
           f"{time.perf_counter() - t1:.3f} s, on {smi}")
     return {name: total[name] for name in launches}
 
@@ -2572,8 +2799,8 @@ def main() -> int:
     phase("11 invert", t0)
 
     t0 = time.perf_counter()
-    sharded_launches = run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind,
-                                   args.profile, merged)
+    sharded_launches, one_shard = run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind,
+                                              args.profile, merged)
     phase("12 sharded", t0)
 
     t0 = time.perf_counter()
@@ -2597,6 +2824,11 @@ def main() -> int:
     t0 = time.perf_counter()
     multihost_launches = run_multihost(smi)
     phase("16 multihost", t0)
+
+    t0 = time.perf_counter()
+    mesh_launches = run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one_shard,
+                             args.profile)
+    phase("17 mesh", t0)
     if args.profile:
         profile_passes(torch, prep.run_grouped, args.profile, kind, smi, prep.calls)
         profile_tiers(torch, tier_prep, smi)
@@ -2612,7 +2844,8 @@ def main() -> int:
     counts = dict(launches_pass=launches, launches_tiers=tier_launches,
                   launches_single=single_launches, launches_phrase=phrase_launches, launches_index=index_launches,
                   launches_sharded=sharded_launches, launches_ingest=ingest_launches,
-                  launches_cli=cli_launches, launches_multihost=multihost_launches)
+                  launches_cli=cli_launches, launches_multihost=multihost_launches,
+                  launches_mesh=mesh_launches)
     for name in kb.KERNELS:
         if sum(c[name] for c in counts.values()) <= 0:
             raise AssertionError(f"kernel {name} never launched on a main path")

@@ -8,6 +8,7 @@ where there is no card instead of continuing on the CPU. The tests pass
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Any, Dict, Optional, Sequence
 
@@ -46,6 +47,17 @@ def check_tensor(t: torch.Tensor, name: str, dtype, device, ndim: int):
         raise ValueError(f"{name}: rank {t.dim()}, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def current_card(device: torch.device):
+    """A context in which ``device``, where it is a card, is the current
+    card (``torch.cuda.device``, which switches only where another card is
+    current, and back after); nothing for the CPU. Work issued on a card's
+    current stream, a kernel's foreign launch, a graph's capture or replay,
+    must run with that card current."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def raw_stream(device: torch.device) -> int:

@@ -47,6 +47,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from iresearch_tpu_torch.device import current_card
 from iresearch_tpu_torch.exec.candidates import candidate_body, dslice_topk
 from iresearch_tpu_torch.exec.executor import (  # noqa: F401 (re-exported)
     _NEG_INF,
@@ -663,7 +664,8 @@ def _pack_args(trees, device):
     flat = host.numpy()
     for off, a in parts:
         flat[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
-    return templates, host.to(device, non_blocking=True), tuple(dev_args)
+    with current_card(device):
+        return templates, host.to(device, non_blocking=True), tuple(dev_args)
 
 
 def _materialize(t, buf, dev_args):
@@ -714,7 +716,8 @@ def _kept(dev_args):
 # (a miss costs milliseconds) never evicts a batch's entry (a miss of the
 # index pass costs ~0.4 s): "batch" holds the batches and index passes
 # (``_FUSED_CACHE``), "single" the single queries, "sharded" the sharded
-# executor's signature groups.
+# executor's signature groups (an entry a group, holding its graph on
+# every shard, so that one pass never evicts its own graphs).
 _FUSED_KINDS: "Dict[str, OrderedDict]" = {
     "batch": OrderedDict(), "single": OrderedDict(), "sharded": OrderedDict(),
 }
@@ -766,10 +769,12 @@ class _FusedPass:
     """A cached fused pass: its own copy of the packed buffers and, on the
     card, the CUDA graph of the pass over that copy, the graph's output
     buffer, its launches of each kernel per replay (counted at capture),
-    its node count and how often a later call hit it."""
+    its node count and how often a later call hit it. Its capture, loads
+    and replays run with its buffers' card current."""
 
     def __init__(self, bufs, kept) -> None:
         self.bufs = tuple(b.clone() for b in bufs)
+        self.device = self.bufs[0].device
         self.kept = kept
         self.graph = None
         self.out = self.layout = None
@@ -779,36 +784,38 @@ class _FusedPass:
         self.hits = 0
 
     def load(self, bufs) -> None:
-        for dst, src in zip(self.bufs, bufs):
-            dst.copy_(src, non_blocking=True)
+        with current_card(self.device):
+            for dst, src in zip(self.bufs, bufs):
+                dst.copy_(src, non_blocking=True)
 
     def capture(self, body) -> None:
         """Run ``body`` once on a side stream as warm-up (it fills the
         plan and phrase memos, builds the kernels and lets the allocator
         settle), then capture it into one graph. A failure raises."""
-        dev = self.bufs[0].device
-        cur = torch.cuda.current_stream(dev)
-        side = _CAPTURE_STREAMS.get(dev)
-        if side is None:
-            side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            body(self.bufs)
-            graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
-            with kb.counted_apart() as launches:
-                graph.capture_begin(pool=_GRAPH_POOLS.setdefault(
-                    dev, torch.cuda.graph_pool_handle()))
-                try:
-                    out, layout = _flat_outputs(body(self.bufs))
-                    nodes = kb.capture_nodes(side.cuda_stream)
-                except BaseException:
-                    with contextlib.suppress(RuntimeError):
-                        graph.capture_end()
-                    raise
-                graph.capture_end()
-            self.capture_s = time.perf_counter() - t0
-        cur.wait_stream(side)
+        dev = self.device
+        with current_card(dev):
+            cur = torch.cuda.current_stream(dev)
+            side = _CAPTURE_STREAMS.get(dev)
+            if side is None:
+                side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                body(self.bufs)
+                graph = torch.cuda.CUDAGraph()
+                t0 = time.perf_counter()
+                with kb.counted_apart() as launches:
+                    graph.capture_begin(pool=_GRAPH_POOLS.setdefault(
+                        dev, torch.cuda.graph_pool_handle()))
+                    try:
+                        out, layout = _flat_outputs(body(self.bufs))
+                        nodes = kb.capture_nodes(side)
+                    except BaseException:
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+                self.capture_s = time.perf_counter() - t0
+            cur.wait_stream(side)
         self.graph, self.out, self.layout = graph, out, layout
         self.launches = {n: c for n, c in launches.items() if c}
         self.nodes = nodes
@@ -816,35 +823,80 @@ class _FusedPass:
     def run(self, body):
         """The pass's outputs as fresh tensors: the graph replayed and its
         outputs copied out (the graph's kernels counted as launched), or
-        on the CPU ``body`` over the entry's buffers."""
+        on the CPU ``body`` over the entry's buffers. Nothing waits for
+        the device."""
         if self.graph is None:
             return _split_outputs(*_flat_outputs(body(self.bufs)))
-        self.graph.replay()
+        with current_card(self.device):
+            self.graph.replay()
+            out = self.out.clone()
         for name, n in self.launches.items():
             kb.count_launch(name, n)
-        return _split_outputs(self.out.clone(), self.layout)
+        return _split_outputs(out, self.layout)
+
+
+class _FusedGroup:
+    """A cached pass in parts, one per shard of the sharded executor (its
+    card's graph each): a ``_FusedPass`` per part in ``passes``, and how
+    often a later call hit the group."""
+
+    def __init__(self, passes) -> None:
+        self.passes = tuple(passes)
+        self.hits = 0
+
+
+def _new_pass(bufs, body, kept):
+    """A new entry for ``body`` over buffers like ``bufs``: on the card
+    its graph captured."""
+    entry = _FusedPass(bufs, kept)
+    if entry.bufs[0].is_cuda:
+        entry.capture(body)
+    return entry
+
+
+def _cached(kind: str, key, make):
+    """(entry, hit): the entry of ``key`` in the LRU of ``kind``, made by
+    ``make()`` on a miss (its oldest entries evicted past
+    ``_FUSED_CACHE_MAX``), moved to the newest and its hit counted on a
+    hit. Under ``_FUSED_LOCK``."""
+    cache = _FUSED_KINDS[kind]
+    entry = cache.get(key)
+    if entry is None:
+        entry = cache[key] = make()
+        while len(cache) > _FUSED_CACHE_MAX:
+            cache.popitem(last=False)
+        return entry, False
+    cache.move_to_end(key)
+    entry.hits += 1
+    return entry, True
 
 
 def _run_fused(kind: str, key, bufs, body, kept=()):
     """The flat outputs of ``body`` (the pass over buffers like ``bufs``)
-    through the entry of ``key`` in the LRU of ``kind`` ("batch",
-    "single" or "sharded"): on a miss a new entry (on the card its graph
-    captured), on a hit ``bufs`` copied into the entry's own."""
-    cache = _FUSED_KINDS[kind]
+    through the entry of ``key`` in the LRU of ``kind`` ("batch" or
+    "single"): on a miss a new entry (on the card its graph captured), on
+    a hit ``bufs`` copied into the entry's own."""
     with _FUSED_LOCK:
-        entry = cache.get(key)
-        if entry is None:
-            entry = _FusedPass(bufs, kept)
-            if entry.bufs[0].is_cuda:
-                entry.capture(body)
-            cache[key] = entry
-            while len(cache) > _FUSED_CACHE_MAX:
-                cache.popitem(last=False)
-        else:
-            cache.move_to_end(key)
-            entry.hits += 1
+        entry, hit = _cached(kind, key, lambda: _new_pass(bufs, body, kept))
+        if hit:
             entry.load(bufs)
         return entry.run(body)
+
+
+def _run_fused_group(kind: str, key, parts, kept=()):
+    """Per part ``(bufs, body)``, one per shard, the flat outputs of its
+    body through the ``_FusedGroup`` of ``key`` in the LRU of ``kind``
+    ("sharded"): on a miss every part captured on its card, on a hit each
+    part's buffers copied into its pass's own. The parts' replays are
+    issued back to back with no wait for a device between them, so that
+    distinct cards run at once."""
+    with _FUSED_LOCK:
+        entry, hit = _cached(kind, key, lambda: _FusedGroup(
+            _new_pass(bufs, body, kept) for bufs, body in parts))
+        if hit:
+            for p, (bufs, _body) in zip(entry.passes, parts):
+                p.load(bufs)
+        return [p.run(body) for p, (_bufs, body) in zip(entry.passes, parts)]
 
 
 class _Rows(NamedTuple):

@@ -178,17 +178,25 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def launch_noop(stream: int) -> None:
-    """Launch the library's empty kernel on ``stream`` (a raw CUDA stream
-    handle): what one launch costs the device, for a timing's floor."""
+def launch_noop(stream) -> None:
+    """Launch the library's empty kernel on ``stream`` (a
+    ``torch.cuda.Stream``), its card current: what one launch costs the
+    device, for a timing's floor."""
+    import torch
+
     lib = library()
-    check(lib, lib.irs_noop(stream), "noop")
+    with torch.cuda.device(stream.device):
+        check(lib, lib.irs_noop(stream.cuda_stream), "noop")
 
 
-def capture_nodes(stream: int) -> int:
-    """The nodes of the CUDA graph being captured on ``stream`` (a raw
-    handle), so far."""
+def capture_nodes(stream) -> int:
+    """The nodes of the CUDA graph being captured on ``stream`` (a
+    ``torch.cuda.Stream``, its card made current), so far."""
+    import torch
+
     lib = library()
     n = ctypes.c_longlong(0)
-    check(lib, lib.irs_capture_nodes(stream, ctypes.byref(n)), "capture_nodes")
+    with torch.cuda.device(stream.device):
+        rc = lib.irs_capture_nodes(stream.cuda_stream, ctypes.byref(n))
+    check(lib, rc, "capture_nodes")
     return n.value

@@ -10,7 +10,10 @@ on the TPU: the doc lengths (the row's inline norm block, or
 ``norms[docs]`` on segments without norm pools), the score and the match
 flag. On CUDA tensors they launch ``k3_decode_rows`` and
 ``k3_decode_score_rows``; on CPU tensors they run ``decode_rows_ref`` and
-``decode_score_rows_ref``.
+``decode_score_rows_ref``. A launch goes to the current stream of the
+rows' card, made the current card around the foreign call (a kernel
+launched into another card's stream fails; ``torch.cuda.device`` switches
+only where the rows' card is not current already).
 """
 
 from __future__ import annotations
@@ -142,10 +145,11 @@ def decode_rows(doc_words, freq_words, base, rows_d, rows_f, *, bd, bf):
     if R == 0:
         return docs, freqs
     lib = kb.library()
-    rc = lib.irs_decode_rows(
-        dw, fw, bs, rows_d.data_ptr(), rows_f.data_ptr(), nd_rows, nf_rows,
-        R, bd, bf, docs.data_ptr(), freqs.data_ptr(), raw_stream(dev),
-    )
+    with torch.cuda.device(dev):  # the launch goes to a stream of the current card
+        rc = lib.irs_decode_rows(
+            dw, fw, bs, rows_d.data_ptr(), rows_f.data_ptr(), nd_rows, nf_rows,
+            R, bd, bf, docs.data_ptr(), freqs.data_ptr(), raw_stream(dev),
+        )
     kb.check(lib, rc, "decode_rows")
     kb.count_launch("decode_rows")
     return docs, freqs
@@ -209,13 +213,14 @@ def decode_score_rows(
     if R == 0:
         return res
     lib = kb.library()
-    rc = lib.irs_decode_score_rows(
-        dw, fw, bs, rows_d.data_ptr(), rows_f.data_ptr(), nd_rows, nf_rows,
-        R, bd, bf, nw, rn, nn_rows, bn, nrm, nd_pad, w.data_ptr(), avgdl_dev,
-        avgdl_f, kind, kbv, c0, docs.data_ptr(), planes[1].data_ptr(),
-        matched.data_ptr(), planes[2].data_ptr() if want_dl else None,
-        raw_stream(dev),
-    )
+    with torch.cuda.device(dev):
+        rc = lib.irs_decode_score_rows(
+            dw, fw, bs, rows_d.data_ptr(), rows_f.data_ptr(), nd_rows, nf_rows,
+            R, bd, bf, nw, rn, nn_rows, bn, nrm, nd_pad, w.data_ptr(), avgdl_dev,
+            avgdl_f, kind, kbv, c0, docs.data_ptr(), planes[1].data_ptr(),
+            matched.data_ptr(), planes[2].data_ptr() if want_dl else None,
+            raw_stream(dev),
+        )
     kb.check(lib, rc, "decode_score_rows")
     kb.count_launch("decode_score_rows")
     return res

@@ -19,7 +19,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from iresearch_tpu_torch.device import check_tensor, runs_plain
+from iresearch_tpu_torch.device import check_tensor, raw_stream, runs_plain
 from iresearch_tpu_torch.formats.bitpack import unpack_torch
 from iresearch_tpu_torch.formats.spec import BLOCK
 from iresearch_tpu_torch.index.segment import dl_rows
@@ -146,27 +146,28 @@ def dense_scan_rowmax(
         return out_max, out_arg
     kind, kbv, c0 = kernel_scorer(scorer)
     lib = kb.library()
-    rc = lib.irs_dense_scan_rowmax(
-        (ctypes.c_void_p * S)(*(p.data_ptr() for p in pools)),
-        (ctypes.c_longlong * S)(*(p.shape[0] for p in pools)),
-        (ctypes.c_int * S)(*span_bits),
-        S,
-        starts.data_ptr(),
-        ws.data_ptr(),
-        norms.data_ptr(),
-        int(norms.dtype == torch.uint16),
-        ndrows,
-        q,
-        kind,
-        kbv,
-        c0,
-        f32(avgdl),
-        int(conj),
-        int(mm),
-        out_max.data_ptr(),
-        out_arg.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch goes to a stream of the current card
+        rc = lib.irs_dense_scan_rowmax(
+            (ctypes.c_void_p * S)(*(p.data_ptr() for p in pools)),
+            (ctypes.c_longlong * S)(*(p.shape[0] for p in pools)),
+            (ctypes.c_int * S)(*span_bits),
+            S,
+            starts.data_ptr(),
+            ws.data_ptr(),
+            norms.data_ptr(),
+            int(norms.dtype == torch.uint16),
+            ndrows,
+            q,
+            kind,
+            kbv,
+            c0,
+            f32(avgdl),
+            int(conj),
+            int(mm),
+            out_max.data_ptr(),
+            out_arg.data_ptr(),
+            raw_stream(dev),
+        )
     kb.check(lib, rc, "dense_scan_rowmax")
     kb.count_launch("dense_scan_rowmax")
     return out_max, out_arg

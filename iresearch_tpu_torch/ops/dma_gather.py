@@ -97,10 +97,11 @@ def dma_row_slices(
     if q == 0:
         return outs
     lib = kb.library()
-    rc = lib.irs_dma_row_slices(
-        ptrs, rows, widths, P, starts.data_ptr(), q, R, buf.data_ptr(),
-        raw_stream(dev),
-    )
+    with torch.cuda.device(dev):  # the launch goes to a stream of the current card
+        rc = lib.irs_dma_row_slices(
+            ptrs, rows, widths, P, starts.data_ptr(), q, R, buf.data_ptr(),
+            raw_stream(dev),
+        )
     kb.check(lib, rc, "dma_row_slices")
     kb.count_launch("dma_row_slices")
     return outs

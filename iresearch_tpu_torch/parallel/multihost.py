@@ -3,14 +3,18 @@ multihost.py``).
 
 The JAX package proves its process-spanning mesh with N local processes
 that join one ``jax.distributed`` cluster (gloo CPU collectives standing in
-for DCN). Here the processes join one ``torch.distributed`` group over
-gloo (``tcp://`` at a coordinator address); NCCL takes one rank per GPU,
-and the workers may share one card. Each process builds the same corpus
-with the port's writer, holds ``devices_per_proc`` of its
-``num_processes * devices_per_proc`` segments in a ``ShardedSearcher`` on
-``device``, runs the same batched search, and the candidates meet in the
-searcher's ``all_gather``; every process checks the global top-k against
-the host oracle.
+for DCN), each process with ``devices_per_proc`` devices. Here the
+processes join one ``torch.distributed`` group over gloo (``tcp://`` at a
+coordinator address; NCCL would take one rank per card), and each holds
+``devices_per_proc`` shards in a ``ShardedSearcher``, one per device of
+its mesh: ``devices_per_proc`` distinct cards where the host has
+``num_processes * devices_per_proc`` of them (process ``i`` takes cards
+``i * K .. i * K + K - 1``), else ``devices_per_proc`` shards on
+``device``. Each process builds the same corpus of ``num_processes *
+devices_per_proc`` segments with the port's writer, one segment a shard,
+runs the same batched search, and the candidates meet on its first device
+and then in the searcher's ``all_gather``; every process checks the global
+top-k against the host oracle.
 
 Run a worker:
 
@@ -92,6 +96,24 @@ def queries():
     ]
 
 
+def mesh_devices(process_id: int, num_processes: int, devices_per_proc: int,
+                 device=None):
+    """Process ``process_id``'s ``devices_per_proc`` mesh devices: where
+    ``device`` names no card of its own (None or ``"cuda"``) and the host
+    has ``num_processes * K`` cards, the distinct cards ``process_id * K
+    ..``, as each JAX process has K devices; else ``device`` (the card
+    when None) K times."""
+    import torch
+
+    from iresearch_tpu_torch.exec.executor import entry_device
+
+    K = devices_per_proc
+    if (device is None or str(device) == "cuda") and torch.cuda.is_available() \
+            and torch.cuda.device_count() >= num_processes * K:
+        return [torch.device("cuda", process_id * K + j) for j in range(K)]
+    return [entry_device(device)] * K
+
+
 def run_worker(
     process_id: int,
     num_processes: int,
@@ -103,13 +125,12 @@ def run_worker(
 
     Joins the gloo group at ``coordinator``, builds the shared corpus of
     ``num_processes * devices_per_proc`` segments, holds its share of them
-    on ``device`` (the card when None) and runs the batched sharded search,
-    asserting exact oracle parity (every process gets the global top-k)."""
+    in ``devices_per_proc`` shards (``mesh_devices``; on the card when
+    ``device`` is None) and runs the batched sharded search, asserting
+    exact oracle parity (every process gets the global top-k)."""
     import torch.distributed as dist
 
-    from iresearch_tpu_torch.exec.executor import entry_device
-
-    dev = entry_device(device)
+    devices = mesh_devices(process_id, num_processes, devices_per_proc, device)
     dist.init_process_group(
         "gloo",
         init_method="tcp://" + coordinator,
@@ -124,9 +145,9 @@ def run_worker(
 
         n_global = num_processes * devices_per_proc
         reader = _build_reader(num_docs=192 * n_global, segments=n_global)
-        searcher = ShardedSearcher(list(reader.segments), device=dev)
-        if (searcher.mesh.world, searcher.per_shard) != (num_processes, devices_per_proc):
-            raise AssertionError(f"mesh {searcher.mesh}, {searcher.per_shard} segments each")
+        searcher = ShardedSearcher(list(reader.segments), devices=devices)
+        if (searcher.mesh.world, searcher.D, searcher.per_shard) != (num_processes, n_global, 1):
+            raise AssertionError(f"mesh {searcher.mesh}, {searcher.per_shard} segments a shard")
         qs = queries()
         kb.reset_launch_counts()
         prep = searcher.prepare_many(qs, BM25(), wand=True)
@@ -152,13 +173,18 @@ def run_worker(
         from iresearch_tpu_torch.exec.batch import _FUSED_KINDS
 
         # top_k replays one graph of this process's part per signature
-        # group; the all_gather and the re-rank follow it
-        graphs = _FUSED_KINDS["sharded"].values()
+        # group and shard; the gather onto its first device, the all_gather
+        # and the re-rank follow them: an entry of the "sharded" LRU per
+        # group replays one graph on each of this process's shards
+        entries = _FUSED_KINDS["sharded"].values()
+        passes = [p for e in entries for p in e.passes]
         print(f"MULTIHOST_FUSED process={process_id} groups={len(prep.groups)} "
-              f"entries={len(graphs)} captured={sum(e.graph is not None for e in graphs)} "
-              f"nodes={sum(e.nodes for e in graphs)}", flush=True)
+              f"entries={len(entries)} shards={len(devices)} passes={len(passes)} "
+              f"captured={sum(p.graph is not None for p in passes)} "
+              f"nodes={sum(p.nodes for p in passes)}", flush=True)
         print(f"MULTIHOST_OK process={process_id}/{num_processes} "
-              f"devices={n_global} queries={len(qs)} device={dev}", flush=True)
+              f"devices={n_global} queries={len(qs)} device={devices[0]} "
+              f"mesh={','.join(map(str, devices))}", flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -171,7 +197,7 @@ def dryrun_multihost(
 ):
     """Spawn the worker group and require every process to pass; returns
     each worker's output. ``device`` is passed to every worker (the card
-    when None)."""
+    when None; ``mesh_devices`` gives each its shards' devices)."""
     import socket
 
     with socket.socket() as s:  # free localhost port for the coordinator
@@ -225,7 +251,7 @@ def dryrun_multihost(
             )
     print(
         f"dryrun_multihost OK: {num_processes} processes x "
-        f"{devices_per_proc} segments, exact oracle parity in every process"
+        f"{devices_per_proc} shards, exact oracle parity in every process"
     )
     return outs
 
@@ -237,7 +263,9 @@ def _main() -> None:
     ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--num-processes", type=int, required=True)
     ap.add_argument("--coordinator", required=True)
-    ap.add_argument("--devices-per-proc", type=int, default=4)
+    ap.add_argument("--devices-per-proc", type=int, default=4,
+                    help="shards of each process: distinct cards where the host has "
+                         "enough, else shards on --device")
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     a = ap.parse_args()
     run_worker(

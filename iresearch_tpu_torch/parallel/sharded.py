@@ -11,30 +11,40 @@ their structure differs across segments or ``nd_pad << caplog`` reaches
 2^31; then the host evaluates them as aux leaves.
 
 The device half is PyTorch's own idiom where the JAX package has a
-``Mesh``, ``shard_map`` and ``jit``: this process loops over its own
-segments ``[rank * per_shard, (rank + 1) * per_shard)`` and, per signature
-group and segment, calls the single-segment runners of ``exec/batch.py``
-(fold with aux, WAND, the candidate tiers) on that segment's resident
-pools, at the GLOBAL ``nd_pad`` (the power of two of the largest segment)
-as every shard runs in the JAX package. Each segment's top-k, its doc base
-added, concatenates along the candidate axis; ``torch.distributed
-.all_gather`` joins the processes' candidates where the searcher has a
-group of more than one process, and one exact (score desc, doc asc)
-re-rank gives the global top-k.
+``Mesh``, ``shard_map`` and ``jit``. The mesh (``make_mesh``) is this
+process's local devices, one shard each (the same device may repeat),
+times the processes of a ``torch.distributed`` group: ``D = world x
+len(devices)`` shards, as ``mesh.devices.size`` is in JAX. Segment ``s``
+lies on global shard ``s // per_shard``; this process holds shards
+``[rank * len(devices), (rank + 1) * len(devices))``, each on its device,
+and per signature group and shard calls the single-segment runners of
+``exec/batch.py`` (fold with aux, WAND, the candidate tiers) on the
+shard's segments' resident pools, at the GLOBAL ``nd_pad`` (the power of
+two of the largest segment) as every shard runs in the JAX package. Each
+segment's top-k, its doc base added, concatenates along the candidate
+axis; the shards' candidates are copied onto the mesh's first device
+(peer to peer between cards that allow it), ``torch.distributed
+.all_gather`` joins the processes' candidates where the group has more
+than one process, and one exact (score desc, doc asc) re-rank gives the
+global top-k.
 
-Per searcher and field the segments' ``norms`` (clamped to 1, padded with
-1) and per segment ``alive`` (padded with False) are held at ``nd_pad``,
-and the uniform dense pools are uploaded per segment on first use. A
-prepared batch packs each signature group's host-made arrays into one
-buffer and one upload (``exec/batch.py:_pack_args``), and ``run`` replays
-one CUDA graph per group, the counterpart of the JAX package's one jitted
-``shard_map`` program per group (``_sharded_topk_batch``): every local
-segment's runner, the doc-base shift and the concat, and with one process
-the final re-rank too. With more processes the ``all_gather`` (``gloo``
-stages CUDA tensors on the host, which a graph cannot hold) and the
-re-rank follow the replay. The graphs live in ``exec/batch.py``'s
-"sharded" LRU, so a fresh ``prepare_many`` of the same structure on the
-same searcher replays them; ``run(fused=False)`` is the eager debug path.
+Per searcher, field and segment the ``norms`` (clamped to 1, padded with
+1) and ``alive`` (padded with False) are held at ``nd_pad`` on the
+segment's shard's device, and the uniform dense pools are uploaded there
+on first use. A prepared batch packs each signature group's host-made
+arrays of each shard into one buffer and one upload to the shard's device
+(``exec/batch.py:_pack_args``), and ``run`` replays one CUDA graph per
+group and shard, the counterpart of the JAX package's one jitted
+``shard_map`` program per group (``_sharded_topk_batch``): the shard's
+segments' runners, the doc-base shift and the concat, and with a single
+shard the final re-rank too. Every shard's graph is issued before any
+candidate is copied, with no wait for a device between them, so that
+distinct cards run at once; the copy onto the first device, the
+``all_gather`` (``gloo`` stages CUDA tensors on the host, which a graph
+cannot hold) and the re-rank follow the replays. A group's graphs on
+every shard are one entry of ``exec/batch.py``'s "sharded" LRU, so a
+fresh ``prepare_many`` of the same structure on the same searcher replays
+them; ``run(fused=False)`` is the eager debug path.
 """
 
 from __future__ import annotations
@@ -46,12 +56,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from iresearch_tpu_torch.device import require_cuda
 from iresearch_tpu_torch.exec.batch import (
     _materialize,
     _pack_args,
     _run_candidates,
     _run_fold,
-    _run_fused,
+    _run_fused_group,
     _run_wand,
     _template_key,
 )
@@ -72,24 +83,38 @@ from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32
 
 _IMAX32 = 2**31 - 1
 
-Mesh = namedtuple("Mesh", "group rank world")
+class Mesh(namedtuple("Mesh", "group rank world devices")):
+    """The shards a searcher spans: this process's ``devices`` (one shard
+    each, in order) in every process of ``group`` (``rank`` of ``world``;
+    None with one process)."""
+
+    @property
+    def size(self) -> int:
+        """Shards in the whole mesh (the JAX ``mesh.devices.size``)."""
+        return self.world * len(self.devices)
 
 
-def make_mesh(group=None) -> Mesh:
-    """The (process group, rank, world size) a searcher shards over (the
-    counterpart of the JAX package's ``make_mesh``): ``group`` when given;
-    else the default group where ``torch.distributed`` is initialized with
-    more than one process; else ``(None, 0, 1)``, one process holding every
-    segment, as on one card."""
+def make_mesh(devices=None, group=None) -> Mesh:
+    """The mesh a searcher shards over (the counterpart of the JAX
+    package's ``make_mesh(devices)``): ``devices``, this process's devices
+    with one shard each (the same device may repeat; the CPU only where
+    named), every visible card when None (JAX's ``jax.devices()``; raises
+    where there is none), times the processes of ``group`` when given, else
+    of the default group where ``torch.distributed`` is initialized with
+    more than one process, else of this process alone."""
     import torch.distributed as dist
 
+    if devices is None:
+        require_cuda()
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = tuple(entry_device(d) for d in devices)
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
     if group is None:
-        if not (dist.is_available() and dist.is_initialized()):
-            return Mesh(None, 0, 1)
-        if dist.get_world_size() == 1:
-            return Mesh(None, 0, 1)
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+            return Mesh(None, 0, 1, devices)
         group = dist.group.WORLD
-    return Mesh(group, dist.get_rank(group), dist.get_world_size(group))
+    return Mesh(group, dist.get_rank(group), dist.get_world_size(group), devices)
 
 
 def _pow2(n: int) -> int:
@@ -133,18 +158,25 @@ class _KeysRows:
 
 
 class ShardedSearcher:
-    """Shards a reader's segments over the processes of a group (one
-    process on one card by default) and runs exact top-k.
+    """Shards a reader's segments over a mesh of devices and processes
+    and runs exact top-k.
 
-    ``device`` defaults to the card (raises without one); the tests pass
-    ``device="cpu"``. ``segments`` are the port's own readers."""
+    ``devices``: this process's devices, one shard each (the same device
+    may repeat); ``device`` alone is a mesh of that one device; with
+    neither, every visible card (raises where there is none). The tests
+    pass ``"cpu"``. ``group``: the processes (``make_mesh``). Results lie
+    on ``device``, the mesh's first device. ``segments`` are the port's
+    own readers."""
 
-    def __init__(self, segments: Sequence, group=None, *, device=None) -> None:
+    def __init__(self, segments: Sequence, group=None, *, device=None,
+                 devices=None) -> None:
         self.segments = list(segments)
         check_port_objects(self.segments)
-        self.device = entry_device(device)
-        self.mesh = make_mesh(group)
-        self.D = self.mesh.world
+        if device is not None and devices is not None:
+            raise ValueError("pass device or devices, not both")
+        self.mesh = make_mesh([device] if device is not None else devices, group)
+        self.device = self.mesh.devices[0]
+        self.D = self.mesh.size
         S = max(1, math.ceil(len(self.segments) / self.D) * self.D)
         self.S = S
         self.per_shard = S // self.D
@@ -157,28 +189,34 @@ class ShardedSearcher:
             self._doc_base[i] = base
             base += sr.num_docs
         self.total_docs = base
-        lo = self.mesh.rank * self.per_shard
-        # this process's segments; padding segments (past the real ones)
-        # hold no doc and are left out
-        self.local = [
-            si for si in range(lo, lo + self.per_shard) if si < len(self.segments)
-        ]
+        # this process's shards: (global shard, device, its segments), the
+        # segments of global shard g being [g * per_shard, (g + 1) *
+        # per_shard); padding segments (past the real ones) hold no doc and
+        # are left out, so a shard may hold none
+        first = self.mesh.rank * len(self.mesh.devices)
+        self.shards = []
+        for j, dev in enumerate(self.mesh.devices):
+            lo = (first + j) * self.per_shard
+            segs = [si for si in range(lo, lo + self.per_shard) if si < len(self.segments)]
+            self.shards.append((first + j, dev, segs))
+        self.local = [si for _g, _d, segs in self.shards for si in segs]
+        self._seg_device = {si: dev for _g, dev, segs in self.shards for si in segs}
         self._alive = {si: self._alive_of(si) for si in self.local}
         self._norms: Dict[Tuple[str, int], torch.Tensor] = {}
         self._zero_pools: Dict[tuple, tuple] = {}
         self._dense_layouts: Dict[str, object] = {}
         self._dense_pool_cache: Dict[Tuple[str, int, int], torch.Tensor] = {}
 
-    # --- residency at the global nd_pad ---------------------------------
+    # --- residency at the global nd_pad, on each segment's shard's device -
 
-    def _up(self, arr, dtype) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(self.device)
+    def _up(self, arr, dtype, si: int) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(self._seg_device[si])
 
     def _alive_of(self, si: int) -> torch.Tensor:
         sr = self.segments[si]
         alive = np.zeros(self.nd_pad, np.bool_)
         alive[: sr.num_docs] = sr.alive
-        return self._up(alive, np.bool_)
+        return self._up(alive, np.bool_, si)
 
     def _norms_of(self, fname: str, si: int) -> torch.Tensor:
         """Segment ``si``'s norms of ``fname``: max(norms, 1), padded with
@@ -190,33 +228,36 @@ class ShardedSearcher:
             fp = self.segments[si].field(fname)
             if fp is not None:
                 norms[: len(fp.norms)] = np.maximum(fp.norms, 1)
-            t = self._norms[key] = self._up(norms, np.float32)
+            t = self._norms[key] = self._up(norms, np.float32, si)
         return t
 
     def _group_pool(self, si: int, fname: str, dcls: int, fcls: int, ncls: int):
         """(doc_words, freq_words, nrm_words, base, norms) of one row group
-        on segment ``si``: the segment's resident pools, or zero pools of
-        the group's widths where it lacks the field or its norm pools
-        (every row of its groups is then the all-zero sentinel row 0)."""
+        on segment ``si``, on its shard's device: the segment's resident
+        pools (``device_state``, once per segment and card), or zero pools
+        of the group's widths, one set per card, where it lacks the field
+        or its norm pools (every row of its groups is then the all-zero
+        sentinel row 0)."""
         norms = self._norms_of(fname, si)
         sr = self.segments[si]
+        dev = self._seg_device[si]
         if sr.field(fname) is not None:
-            dfield = device_state(sr, self.device).field(fname)
+            dfield = device_state(sr, dev).field(fname)
             if ncls < 0 or dfield.nrm_words is not None:
                 nrm = dfield.nrm_words[ncls] if ncls >= 0 else dfield.freq_words[fcls]
                 return (dfield.doc_words[dcls], dfield.freq_words[fcls], nrm,
                         dfield.base[dcls], norms)
-        key = (dcls, fcls, ncls)
+        key = (dev, dcls, fcls, ncls)
         z = self._zero_pools.get(key)
         if z is None:
-            dw = torch.zeros((1, words_per_block(BITS[dcls])), dtype=torch.int32,
-                             device=self.device)
-            fw = torch.zeros((1, words_per_block(BITS[fcls])), dtype=torch.int32,
-                             device=self.device)
-            nw = fw if ncls < 0 else torch.zeros(
-                (1, words_per_block(BITS[ncls])), dtype=torch.int32, device=self.device)
+            def zeros(cls):
+                return torch.zeros((1, words_per_block(BITS[cls])), dtype=torch.int32,
+                                   device=dev)
+
+            fw = zeros(fcls)
             z = self._zero_pools[key] = (
-                dw, fw, nw, torch.zeros(1, dtype=torch.int32, device=self.device))
+                zeros(dcls), fw, fw if ncls < 0 else zeros(ncls),
+                torch.zeros(1, dtype=torch.int32, device=dev))
         return z + (norms,)
 
     @property
@@ -246,7 +287,7 @@ class ShardedSearcher:
         cached = self._dense_pool_cache.get(key)
         if cached is None:
             pool = self._dense_layout(fname).pools_np[cls][si]
-            cached = torch.from_numpy(_i32(pool)).to(self.device)
+            cached = self._up(_i32(pool), np.int32, si)
             self._dense_pool_cache[key] = cached
         return cached
 
@@ -689,29 +730,43 @@ class ShardedSearcher:
             calls.append((tier, qis, _run_fold, args, kwargs, si))
         return (qis, mode, use_wand, cap), calls
 
-    def _concat(self, parts, q: int, kk: int):
-        """(vals [q, per_shard * kk], docs) of the local segments' top-k
-        lists (global docs) concatenated along the candidate axis, padding
-        segments given no candidate."""
-        dev = self.device
-        pad = self.per_shard - len(parts)
+    def _shard_candidates(self, runs, q: int, kk: int, dev):
+        """[vals, docs] of one shard from its segments' ``runs`` ([((vals,
+        local docs), segment)]): the docs made global, the top-k lists
+        concatenated along the candidate axis to ``per_shard * kk`` (the
+        padding segments given no candidate), and with a single shard in the
+        mesh the final re-rank."""
+        vals = [v for (v, _d), _si in runs]
+        docs = [d + int(self._doc_base[si]) for (_v, d), si in runs]
+        pad = self.per_shard - len(runs)
         if pad:
-            parts = list(parts) + [(
-                torch.full((q, kk * pad), float("-inf"), dtype=torch.float32, device=dev),
-                torch.zeros((q, kk * pad), dtype=torch.int32, device=dev),
-            )]
-        return (torch.cat([v for v, _d in parts], dim=1),
-                torch.cat([d for _v, d in parts], dim=1))
+            vals.append(torch.full((q, kk * pad), float("-inf"), dtype=torch.float32,
+                                   device=dev))
+            docs.append(torch.zeros((q, kk * pad), dtype=torch.int32, device=dev))
+        vals, docs = torch.cat(vals, dim=1), torch.cat(docs, dim=1)
+        return list(topk_docs(vals, docs, kk) if self.D == 1 else (vals, docs))
 
-    def _join(self, vals, docs, kk: int):
-        """Global (vals [q, kk], docs [q, kk]) of this process's candidates:
-        joined across the group's processes by ``all_gather`` and re-ranked
-        by (score desc, doc asc) (the JAX package's ``sharded.py:848-863``)."""
-        if self.D > 1:
+    def _join(self, outs, q: int, kk: int):
+        """Global (vals [q, kk], docs [q, kk]) of this process's shards'
+        candidates ``outs`` ([vals, docs] per shard, None for a shard
+        without segments): each copied onto the mesh's first device
+        (ordered after the current streams of both cards; peer to peer
+        where the cards allow it), concatenated in shard order, joined
+        across the group's processes by ``all_gather`` and re-ranked by
+        (score desc, doc asc) (the JAX package's ``sharded.py:848-863``)."""
+        dev = self.device
+        w = self.per_shard * kk
+        vals = torch.cat([
+            torch.full((q, w), float("-inf"), dtype=torch.float32, device=dev) if o is None
+            else o[0].to(dev, non_blocking=True) for o in outs], dim=1)
+        docs = torch.cat([
+            torch.zeros((q, w), dtype=torch.int32, device=dev) if o is None
+            else o[1].to(dev, non_blocking=True) for o in outs], dim=1)
+        if self.mesh.world > 1:
             import torch.distributed as dist
 
-            gv = [torch.empty_like(vals) for _ in range(self.D)]
-            gd = [torch.empty_like(docs) for _ in range(self.D)]
+            gv = [torch.empty_like(vals) for _ in range(self.mesh.world)]
+            gd = [torch.empty_like(docs) for _ in range(self.mesh.world)]
             dist.all_gather(gv, vals, group=self.mesh.group)
             dist.all_gather(gd, docs, group=self.mesh.group)
             vals, docs = torch.cat(gv, dim=1), torch.cat(gd, dim=1)
@@ -747,30 +802,37 @@ class ShardedSearcher:
 
 
 class PreparedShardedBatch:
-    """A sharded batch resident on the device: each signature group's
-    host-made arrays in one packed upload; ``run`` replays one CUDA graph
-    per group."""
+    """A sharded batch resident on the mesh: each signature group's
+    host-made arrays of each shard in one packed upload to the shard's
+    device; ``run`` replays one CUDA graph per group and shard."""
 
     def __init__(self, searcher: ShardedSearcher, groups, calls, kmax=None) -> None:
         self.searcher = searcher
         # per signature group: (query_indices, mode, use_wand, cap), cap
         # the candidate lanes that bound its k
         self.groups = groups
-        # per group: ([(runner, template, kwargs, segment)], buffer,
-        # long-lived tensors) and its fused keys by k
+        # per group, per local shard: ([(runner, template, kwargs,
+        # segment)], buffer, long-lived tensors, the args over the buffer),
+        # None for a shard without segments; the groups' fused keys by k
         self._packs, self._keys = [], {}
         # per (group, local segment): (tier, query_indices, runner, args
-        # over the group's buffer, kwargs, segment, group index)
+        # over the group's shard's buffer, kwargs, segment, group index)
         self._calls = []
         for gi in range(len(groups)):
-            mine = [c for c in calls if c[6] == gi]
-            templates, buf, dev_args = _pack_args([c[3] for c in mine], searcher.device)
-            self._packs.append((
-                tuple((c[2], tp, c[4], c[5]) for c, tp in zip(mine, templates)),
-                buf, dev_args,
-            ))
-            self._calls += [c[:3] + (_materialize(tp, buf, dev_args),) + c[4:]
-                            for c, tp in zip(mine, templates)]
+            packs = []
+            for _g, dev, segs in searcher.shards:
+                mine = [c for c in calls if c[6] == gi and c[5] in segs]
+                if not mine:
+                    packs.append(None)
+                    continue
+                templates, buf, dev_args = _pack_args([c[3] for c in mine], dev)
+                args = [_materialize(tp, buf, dev_args) for tp in templates]
+                packs.append((
+                    tuple((c[2], tp, c[4], c[5]) for c, tp in zip(mine, templates)),
+                    buf, dev_args, args,
+                ))
+                self._calls += [c[:3] + (a,) + c[4:] for c, a in zip(mine, args)]
+            self._packs.append(packs)
         self.num_queries = sum(len(g[0]) for g in groups)
         self._kmax = kmax  # None = exhaustive for any k
 
@@ -783,46 +845,54 @@ class PreparedShardedBatch:
 
     def fused_key(self, gi: int, kk: int) -> tuple:
         """Group ``gi``'s key in ``exec/batch.py``'s "sharded" LRU at top-
-        ``kk``: its runners, templates and kwargs, its long-lived tensors'
-        addresses, the local segments' doc bases, the padding and whether
-        the re-rank is in the graph (one process)."""
+        ``kk``: per local shard with segments its global index and device,
+        its runners, templates and kwargs, its long-lived tensors'
+        addresses and its segments' doc bases; the padding, the mesh's size
+        (the re-rank is in the graph of a single shard) and ``kk``."""
         key = self._keys.get((gi, kk))
         if key is None:
-            tps, buf, dev_args = self._packs[gi]
             s = self.searcher
-            key = self._keys[(gi, kk)] = (
-                "sharded",
-                _template_key(tuple((fn, tp, dict(kw, k=kk)) for fn, tp, kw, _si in tps),
-                              dev_args, buf),
-                tuple(int(s._doc_base[si]) for *_r, si in tps), s.per_shard, s.D, kk,
-            )
+            parts = []
+            for (g, dev, _segs), pack in zip(s.shards, self._packs[gi]):
+                if pack is None:
+                    continue
+                tps, buf, dev_args, _args = pack
+                parts.append((
+                    g, dev,
+                    _template_key(tuple((fn, tp, dict(kw, k=kk)) for fn, tp, kw, _si in tps),
+                                  dev_args, buf),
+                    tuple(int(s._doc_base[si]) for *_r, si in tps),
+                ))
+            key = self._keys[(gi, kk)] = ("sharded", tuple(parts), s.per_shard, s.D, kk)
         return key
 
-    def _group_body(self, gi: int, kk: int, q: int):
-        """``body((buf,))`` -> [vals, docs] of group ``gi``: every local
-        segment's runner over ``buf``, docs shifted to global, the concat,
-        and with one process the re-rank."""
-        tps, _buf, dev_args = self._packs[gi]
+    def _shard_body(self, gi: int, j: int, kk: int, q: int, kern=KERNELS):
+        """``body((buf,))`` -> [vals, docs] of group ``gi`` on local shard
+        ``j``: its segments' runners on the kernel set ``kern`` over
+        ``buf`` (``body(None)``: over the batch's own buffer, its args
+        made once), then ``_shard_candidates``."""
+        tps, _buf, dev_args, own = self._packs[gi][j]
         s = self.searcher
+        dev = s.shards[j][1]
 
         def body(bufs):
-            parts = []
-            for fn, tp, kw, si in tps:
-                vals, docs = fn(KERNELS, *_materialize(tp, bufs[0], dev_args), **dict(kw, k=kk))
-                parts.append((vals, docs + int(s._doc_base[si])))
-            vals, docs = s._concat(parts, q, kk)
-            return list(topk_docs(vals, docs, kk) if s.D == 1 else (vals, docs))
+            args = own if bufs is None else [_materialize(tp, bufs[0], dev_args)
+                                             for _fn, tp, _kw, _si in tps]
+            runs = [(fn(kern, *a, **dict(kw, k=kk)), si)
+                    for (fn, _tp, kw, si), a in zip(tps, args)]
+            return s._shard_candidates(runs, q, kk, dev)
 
         return body
 
     def run(self, k: int, plain: bool = False, fused: bool = True):
         """Per-query (scores f32 [k'], global docs i32 [k']) tensors on the
-        device, k' = min(k, nd_pad, the group's lanes); -inf scores are
-        non-matches. ``fused=True`` (default) replays one CUDA graph per
-        signature group, captured the first time a group of its structure
-        runs on this searcher; ``fused=False`` runs every (group, segment)
-        runner eagerly (the debug path); ``plain=True`` runs the kernels'
-        plain versions eagerly."""
+        mesh's first device, k' = min(k, nd_pad, the group's lanes); -inf
+        scores are non-matches. ``fused=True`` (default) replays one CUDA
+        graph per signature group and shard, captured the first time a
+        group of its structure runs on this searcher, every shard's issued
+        before the candidates are gathered; ``fused=False`` runs every
+        (group, segment) runner eagerly (the debug path); ``plain=True``
+        runs the kernels' plain versions eagerly."""
         if self._kmax is not None and k > self._kmax:
             raise ValueError(
                 f"prepared for top-k <= {self._kmax} (scored-only multiterm"
@@ -830,23 +900,28 @@ class PreparedShardedBatch:
             )
         s = self.searcher
         kern = PLAIN if plain else KERNELS
-        out = [None] * self.num_queries
+        # every group's work on every shard is issued first, so that no
+        # card waits for another's group before its next one
+        issued = []
         for gi, (qis, _mode, _wand, cap) in enumerate(self.groups):
             kk = min(k, s.nd_pad, cap)
-            if plain or not fused or not self._packs[gi][0]:
-                parts = []
-                for _t, _q, fn, args, kwargs, si, g in self._calls:
-                    if g == gi:
-                        vals, docs = fn(kern, *args, **dict(kwargs, k=kk))
-                        parts.append((vals, docs + int(s._doc_base[si])))
-                vals, docs = s._join(*s._concat(parts, len(qis), kk), kk)
+            packs = self._packs[gi]
+            live = [j for j, p in enumerate(packs) if p is not None]
+            outs = [None] * len(packs)
+            if plain or not fused or not live:
+                for j in live:
+                    outs[j] = self._shard_body(gi, j, kk, len(qis), kern)(None)
             else:
-                vals, docs = _run_fused(
-                    "sharded", self.fused_key(gi, kk), (self._packs[gi][1],),
-                    self._group_body(gi, kk, len(qis)),
+                got = _run_fused_group(
+                    "sharded", self.fused_key(gi, kk),
+                    [((packs[j][1],), self._shard_body(gi, j, kk, len(qis))) for j in live],
                 )
-                if s.D > 1:
-                    vals, docs = s._join(vals, docs, kk)
+                for j, o in zip(live, got):
+                    outs[j] = o
+            issued.append((qis, kk, outs))
+        out = [None] * self.num_queries
+        for qis, kk, outs in issued:
+            vals, docs = outs[0] if s.D == 1 else s._join(outs, len(qis), kk)
             for j, qi in enumerate(qis):
                 out[qi] = (vals[j], docs[j])
         return out

@@ -1,7 +1,8 @@
 """Run single phases of ``chip_smoke.py`` on one NVIDIA GPU (8 the single
 query's breadth categories and tiers, fused and eager; 9 phrases; 12 the
 sharded executor over the three-segment index, fused and eager; 14 the
-CLI, 15 embedding training, 16 the multi-process dryrun), and two
+CLI, 15 embedding training, 16 the multi-process dryrun, 17 the mesh of
+devices over the three-segment index), and two
 measurements behind their design:
 
 * ``--gloo``: whether a ``gloo`` group's ``all_gather`` takes CUDA tensors
@@ -17,6 +18,8 @@ Usage, from the repo root on the card's machine::
     python3 scripts/torch_smoke_phases.py [--gloo] [--gather-forms] \\
         [--docs N] [--profile FILE] [--cli-docs N --cli-segment-docs M] [PHASE ...]
 
+``eager`` times the eager sharded pass over phase 12's index with one
+shard and with phase 17's four shards on one card, in turns.
 ``bits`` runs phase 8's tier batch and each tier's single query 30 times
 each way (eager, fused) and prints, per tier, how their scores differ from
 the first eager run's: in docs, in ulps, or in the sign of a zero.
@@ -180,10 +183,40 @@ def score_bits(torch, cs, sr, dev, smi, runs=30):
               f"ulp, {stats[True][3]} signed-zero lanes) on {smi}", flush=True)
 
 
+def eager_turns(torch, srs, dev, smi, turns=2):
+    """The eager sharded pass of phase 10's mix over ``srs``, one shard
+    (``device=dev``) against four shards on ``dev`` (the mesh of phase 17),
+    synchronised, in turns (one, mesh, mesh, one) ``turns`` times after a
+    warm pass each, with no graph held: whether the mesh's eager pass costs
+    more than one shard's when nothing else differs."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.parallel import ShardedSearcher
+    from iresearch_tpu_torch.search.scorers import BM25
+
+    B.clear_fused_cache()
+    filters = [f for _c, f in bench_mix.task_mix(srs[0])]
+    preps = {name: ShardedSearcher(srs, **kw).prepare_many(filters, BM25(), wand=True, k_max=10)
+             for name, kw in (("one shard", dict(device=dev)), ("mesh", dict(devices=[dev] * 4)))}
+    ms = {name: [] for name in preps}
+    for name in preps:
+        preps[name].run(10, fused=False)
+    for _ in range(turns):
+        for name in ("one shard", "mesh", "mesh", "one shard"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            preps[name].run(10, fused=False)
+            torch.cuda.synchronize()
+            ms[name].append(round((time.perf_counter() - t) * 1e3, 4))
+    for name, xs in ms.items():
+        print(f"EAGER {name}: {xs} ms a pass, synchronised, in turns on {smi}", flush=True)
+
+
 def run_query_phase(torch, cs, step, index, dev, smi, profile=None):
-    """Phase 8, 9 or 12 of ``chip_smoke.py`` on the segments ``index(n)``
-    gives (phase 12 with ``chip_smoke.py``'s profiler breakdown, fused and
-    eager, when ``profile`` names a file)."""
+    """Phase 8, 9, 12 or 17 of ``chip_smoke.py`` on the segments
+    ``index(n)`` gives (phases 12 and 17 with ``chip_smoke.py``'s profiler
+    breakdown, fused and eager, when ``profile`` names a file; phase 17
+    held against a one-shard pass of its own, not phase 12's)."""
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.exec.batch import QueryBatch
     from iresearch_tpu_torch.kernels import build as kb
@@ -197,26 +230,37 @@ def run_query_phase(torch, cs, step, index, dev, smi, profile=None):
         print(cs.run_single_tiers(torch, sr, scorer, k, dev, smi))
     elif step == "bits":
         score_bits(torch, cs, index(1)[0], dev, smi)
+    elif step == "eager":
+        eager_turns(torch, index(3), dev, smi)
     elif step == "9":
         sr = index(1)[0]
         kern = {name: {} for name in kb.KERNELS}
         print(cs.run_phrases(torch, sr, scorer, k, dev, smi, kern,
                              cs.launch_floor(torch, dev)))
     else:
+        from iresearch_tpu_torch.parallel import ShardedSearcher
+
         srs = index(3)
         tasks = bench_mix.task_mix(srs[0])
-        vals, docs = QueryBatch([f for _c, f in tasks], srs, scorer, wand=True,
-                                device=dev).prepare_all(k).run()
+        filters = [f for _c, f in tasks]
+        vals, docs = QueryBatch(filters, srs, scorer, wand=True, device=dev).prepare_all(k).run()
         merged = (vals.cpu().numpy(), docs.cpu().numpy())
-        print(cs.run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged))
+        if step == "12":
+            print(cs.run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged)[0])
+        else:
+            out = ShardedSearcher(srs, device=dev).prepare_many(
+                filters, scorer, wand=True, k_max=k).run(k)
+            one = tuple(torch.stack(x).cpu().numpy() for x in zip(*out))
+            print(cs.run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one, profile))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phases", nargs="*", choices=["8", "9", "12", "14", "15", "16", "bits"])
+    ap.add_argument("phases", nargs="*",
+                    choices=["8", "9", "12", "14", "15", "16", "17", "bits", "eager"])
     ap.add_argument("--docs", type=int, default=5_000_000)
     ap.add_argument("--profile", metavar="FILE",
-                    help="phase 12: also profile a fused and an eager pass; tables to FILE.*")
+                    help="phases 12, 17: also profile a fused and an eager pass; tables to FILE.*")
     ap.add_argument("--gloo", action="store_true")
     ap.add_argument("--gather-forms", action="store_true")
     ap.add_argument("--cli-docs", type=int)
@@ -231,8 +275,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    smi = cards[0] if len(cards) == 1 else f"{len(cards)} x " + " | ".join(sorted(set(cards)))
     print(f"{smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     cs.CLI_DOCS = args.cli_docs or cs.CLI_DOCS
     cs.CLI_SEGMENT_DOCS = args.cli_segment_docs or cs.CLI_SEGMENT_DOCS
@@ -265,7 +310,7 @@ def main() -> int:
                     gloo_check()
                 elif step == "gather":
                     gather_forms(torch, cs)
-                elif step in ("8", "9", "12", "bits"):
+                elif step in ("8", "9", "12", "17", "bits", "eager"):
                     run_query_phase(torch, cs, step, index, dev, smi, args.profile)
                 elif step == "14":
                     print(cs.run_cli(torch, 1_250_000, dev, smi, tmp))

@@ -934,6 +934,7 @@ def test_fresh_single_query_does_not_capture_again_on_card(cuda_device, card_seg
 
 
 def _card_sharded(card_segments, filters=None):
+    """A searcher over every visible card (one shard each) and the mix."""
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.parallel import ShardedSearcher
 
@@ -969,7 +970,8 @@ def test_sharded_group_graph_equals_eager_on_card(cuda_device, card_segments, mo
     finally:
         torch.cuda.set_sync_debug_mode("default")
     entries = list(B._FUSED_KINDS["sharded"].values())
-    assert len(entries) == len(prep.groups) and all(e.graph is not None for e in entries)
+    assert len(entries) == len(prep.groups)
+    assert all(p.graph is not None for e in entries for p in e.passes)
     assert all(kw.get("phrase_keys") for *_r, kw in prep.calls) == (queries == "phrases")
     kept = [(v.clone(), d.clone()) for v, d in got]
     for g, e in zip(got, prep.run(10, fused=False)):
@@ -988,3 +990,168 @@ def test_sharded_group_graph_equals_eager_on_card(cuda_device, card_segments, mo
     for (v, d), (kv, kd) in zip(got, kept):
         assert torch.equal(v, kv) and torch.equal(d, kd)
     B.clear_fused_cache()
+
+
+# --- several devices: each kernel on its tensors' card, the mesh -------------
+
+
+@pytest.fixture
+def second_card(cuda_device):
+    """cuda:1 with cuda:0 current; skips on a host of one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards ({torch.cuda.device_count()} visible)")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_their_tensors_card(second_card):
+    """K1, K2 and K3's two forms on cuda:1 tensors while cuda:0 is current,
+    each against its plain version (BM25 bit for bit): each wrapper makes
+    its tensors' card current around the launch, and cuda:0 is current
+    again after it."""
+    dev, to = second_card, _dev(second_card)
+    pools, starts, ws, norms, avgdl = _k1_inputs(31, (8, 4, 16))
+    args = ([to(_t(p)) for p in pools], to(_t(starts)), to(_t(ws)),
+            to(_t(norms.astype(np.uint16))), avgdl)
+    kw = dict(scorer=to_port(BM25()), span_bits=(8, 4, 16))
+    got = ds.dense_scan_rowmax(*args, **kw)
+    want = [t.cpu().numpy() for t in ds.dense_scan_rowmax_ref(*args, **kw)]
+    assert got[0].device == dev and torch.cuda.current_device() == 0
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0])
+    _check_rowmax([t.cpu().numpy() for t in got], want[0], want[1], rtol=0.0)
+    rng = np.random.default_rng(41)
+    pools = [to(_t(rng.integers(0, 2**32, size=(300, w), dtype=np.uint64).astype(np.uint32)))
+             for w in (64, 8, 32, 1)]
+    starts = to(_t(rng.integers(0, 300 - 16 + 1, size=(7, 4)).astype(np.int32)))
+    rows = dg.dma_row_slices(pools, starts, 16)
+    assert rows[0].device == dev and torch.cuda.current_device() == 0
+    for g, w in zip(rows, dg.dma_row_slices_ref(pools, starts, 16)):
+        assert torch.equal(g, w)
+    r = torch.arange(7 * 16, dtype=torch.int32, device=dev)
+    a = (rows[0].reshape(7 * 16, -1), rows[1].reshape(7 * 16, -1), rows[3].reshape(-1), r,
+         r.flip(0))
+    for g, w in zip(dc.decode_rows(*a, bd=16, bf=2), dc.decode_rows_ref(*a, bd=16, bf=2)):
+        assert g.device == dev and torch.equal(g, w)
+    for bn in (8, -1):
+        a = k3_args(k3_inputs(7, 8, 4, bn, R=9), bn, to=to)
+        avgdl = torch.tensor(np.float32(37.5), device=dev)
+        kw = dict(bd=8, bf=4, bn=bn, scorer=to_port(BM25()), want_dl=True)
+        for g, w in zip(dc.decode_score_rows(*a, avgdl, **kw),
+                        dc.decode_score_rows_ref(*a, avgdl, **kw)):
+            assert g.device == dev and torch.equal(g, w)
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_entry_points_on_second_card(second_card, card_segments):
+    """``DeviceQuery`` (a query of each kernel's tier, fused and plain),
+    ``QueryBatch(...).prepare_all`` (fused, against plain) and
+    ``invert_device`` with ``device="cuda:1"`` while cuda:0 is current: their
+    results lie on cuda:1 and equal the plain runs and cuda:0's."""
+    import dataclasses
+
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.exec.batch import QueryBatch
+    from iresearch_tpu_torch.exec.executor import DeviceQuery
+    from iresearch_tpu_torch.index.invert import invert_device, invert_numpy
+    from iresearch_tpu_torch.kernels import build as kb
+
+    dev, sr = second_card, card_segments[0]
+    B.clear_fused_cache()
+    tasks = bench_mix.single_tier_tasks(sr)
+    kb.reset_launch_counts()
+    for tier in ("scan", "dslice", "phrase", "fold"):
+        flt, wand, knobs, dp = tasks[tier]
+        got = []
+        for d in (dev, torch.device("cuda", 0)):
+            dq = DeviceQuery(flt, [sr], to_port(BM25()), wand=wand, device_phrase=dp, device=d)
+            with bench_mix.planner_knobs(**(knobs or {})):
+                dq.plan(0)
+            v, dd = dq.execute_segment_async(0, 10)
+            assert v.device == d
+            _agree((v, dd), dq.execute_segment_async(0, 10, plain=True))
+            got.append((v.cpu(), dd.cpu()))
+        _agree(*got)
+    assert all(kb.launch_counts()[n] for n in kb.KERNELS), kb.launch_counts()
+    filters = [f for _c, f in bench_mix.task_mix(sr)[::8]]
+    mb = QueryBatch(filters, card_segments, to_port(BM25()), wand=True, device=dev).prepare_all(10)
+    vals, docs = mb.run()
+    assert vals.device == dev and torch.cuda.current_device() == 0
+    _agree((vals, docs), mb.run(plain=True))
+    ref = QueryBatch(filters, card_segments, to_port(BM25()), wand=True).prepare_all(10).run()
+    _agree((vals.cpu(), docs.cpu()), (ref[0].cpu(), ref[1].cpu()))
+    args = bench_mix.token_stream(10_000, 43) + (bench_mix.VOCAB, 10_000)
+    got, want = invert_device(*args, device=dev), invert_numpy(*args)
+    for f in dataclasses.fields(want):
+        np.testing.assert_array_equal(getattr(got, f.name), getattr(want, f.name), err_msg=f.name)
+    B.clear_fused_cache()
+
+
+def _mesh_agrees(card_segments, devices):
+    """The mix (with WAND) and two phrases in the keys form through
+    ``ShardedSearcher(card_segments, devices=devices)``, fused and eager,
+    against the one-shard searcher on cuda:0: the same matches and docs,
+    the scores bit for bit outside the WAND groups (a last ulp there,
+    PERF.md), the results on the mesh's first device; returns the mesh's
+    searcher. A query of fewer than k matches fills its list with -inf
+    non-matches, whose docs depend on the padding (a shard without a
+    segment gives doc 0), so only the matches' docs are compared."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.parallel import ShardedSearcher
+    from iresearch_tpu_torch.search import filters as PF
+
+    B.clear_fused_cache()
+    term_at = bench_mix._ranked(card_segments[0])[0]
+    filters = [f for _c, f in bench_mix.task_mix(card_segments[0])[::8]] + [
+        PF.ByPhrase("body", [term_at(20), term_at(21)]),
+        PF.ByPhrase("body", [term_at(20), term_at(21), (1, term_at(22))])]
+    one = ShardedSearcher(card_segments, device="cuda:0")
+    mesh = ShardedSearcher(card_segments, devices=devices)
+    assert mesh.D == len(devices) and mesh.device == torch.device(devices[0])
+    want = one.prepare_many(filters, to_port(BM25()), wand=True, k_max=10)
+    prep = mesh.prepare_many(filters, to_port(BM25()), wand=True, k_max=10)
+    assert [g[:3] for g in prep.groups] == [g[:3] for g in want.groups]
+    assert any(kw.get("phrase_keys") for *_r, kw in prep.calls)
+    ref = want.run(10)
+    for fused in (True, False):
+        got = prep.run(10, fused=fused)
+        for qis, _m, use_wand, _c in prep.groups:
+            for qi in qis:
+                assert got[qi][0].device == mesh.device
+                g = (got[qi][0].cpu(), got[qi][1].cpu())
+                w = (ref[qi][0].cpu(), ref[qi][1].cpu())
+                fin = torch.isfinite(w[0])
+                assert torch.equal(torch.isfinite(g[0]), fin), (fused, qi)
+                assert torch.equal(g[1][fin], w[1][fin]), (fused, qi)
+                if use_wand:
+                    torch.testing.assert_close(g[0], w[0], rtol=1e-5, atol=0.0)
+                else:
+                    assert torch.equal(g[0], w[0]), (fused, qi)
+    entries = [B._FUSED_KINDS["sharded"][prep.fused_key(gi, min(10, mesh.nd_pad, g[3]))]
+               for gi, g in enumerate(prep.groups)]
+    live = sum(1 for _g, _d, segs in mesh.shards if segs)
+    assert all(len(e.passes) == live and all(p.graph is not None for p in e.passes)
+               for e in entries)
+    assert {p.device for e in entries for p in e.passes} == {
+        d for _g, d, segs in mesh.shards if segs}
+    B.clear_fused_cache()
+    return mesh
+
+
+@pytest.mark.cuda
+def test_mesh_on_one_card_equals_one_shard(cuda_device, card_segments):
+    """Four shards on cuda:0 (the three segments, one shard without one)
+    against ``device=cuda:0``."""
+    mesh = _mesh_agrees(card_segments, [cuda_device] * 4)
+    assert [segs for _g, _d, segs in mesh.shards] == [[0], [1], [2], []]
+
+
+@pytest.mark.cuda
+def test_mesh_of_two_cards_equals_one_shard(second_card, card_segments):
+    """Shards on cuda:0 and cuda:1, the candidates gathered onto cuda:0,
+    against ``device=cuda:0``."""
+    mesh = _mesh_agrees(card_segments, [torch.device("cuda", 0), second_card])
+    assert [segs for _g, _d, segs in mesh.shards] == [[0, 1], [2]]

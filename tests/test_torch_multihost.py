@@ -2,10 +2,12 @@
 multihost.py``) on the CPU.
 
 Two worker processes join one gloo group, each holds two of the four
-segments of the JAX dryrun's corpus in a ``ShardedSearcher`` and runs the
-four queries; each checks its global top-5 against the port's host oracle
-and prints it. Here every worker's hits are also held against the JAX
-package's ``host_eval.search`` on the JAX-built copy of the same corpus.
+segments of the JAX dryrun's corpus in a ``ShardedSearcher`` of two
+shards, one segment each, and runs the four queries; each checks its
+global top-5 against the port's host oracle and prints it. Here every
+worker's hits are also held against the JAX package's ``host_eval.search``
+and its ``ShardedSearcher`` over four devices on the JAX-built copy of the
+same corpus.
 The same dryrun with both workers on one card is marked ``cuda``.
 """
 
@@ -32,29 +34,46 @@ def _hits(outs):
 
 
 def _jax_hits(num_processes, devices_per_proc):
+    """The JAX package's answers on its own build of the corpus: its host
+    oracle's, and its ``ShardedSearcher``'s over a mesh of ``num_processes
+    x devices_per_proc`` devices, one segment a device, which is what its
+    multi-process dryrun spans."""
+    import jax
+
+    from iresearch_tpu.parallel import ShardedSearcher, make_mesh
     from iresearch_tpu.parallel.multihost import _build_reader
     from iresearch_tpu.search.host_eval import search
+    from iresearch_tpu.search.scorers import BM25
     from iresearch_tpu_torch.parallel.multihost import queries
 
     n = num_processes * devices_per_proc
     reader = _build_reader(num_docs=192 * n, segments=n)
     assert len(reader.segments) == n
-    return [search(reader, to_jax(q), k=5) for q in queries()]
+    jq = [to_jax(q) for q in queries()]
+    js = ShardedSearcher(list(reader.segments), make_mesh(jax.devices()[:n]))
+    assert (js.D, js.per_shard) == (n, 1)
+    return [search(reader, q, k=5) for q in jq], js.prepare_many(jq, BM25(), wand=True).top_k(5)
 
 
 def _check(outs, num_processes, devices_per_proc):
-    want = _jax_hits(num_processes, devices_per_proc)
+    oracle, sharded = _jax_hits(num_processes, devices_per_proc)
     for worker in _hits(outs):
-        assert len(worker) == len(want) == 4
-        for got, exp in zip(worker, want):
+        assert len(worker) == len(oracle) == len(sharded) == 4
+        for got, exp, jsh in zip(worker, oracle, sharded):
             assert len(got) == 5
             assert_topk_equiv(got, exp)
+            assert_topk_equiv(got, jsh)
     for pid, out in enumerate(outs):
         assert f"MULTIHOST_OK process={pid}/{num_processes}" in out
+        assert f"shards={devices_per_proc} passes=" in out
 
 
 def test_dryrun_multihost_2proc_matches_jax():
-    _check(dryrun_multihost(num_processes=2, devices_per_proc=2, device="cpu"), 2, 2)
+    """Two processes of two shards each (``devices_per_proc`` = 2 on the
+    CPU: ``mesh=cpu,cpu``) against the JAX package's 2 x 2."""
+    outs = dryrun_multihost(num_processes=2, devices_per_proc=2, device="cpu")
+    _check(outs, 2, 2)
+    assert all("mesh=cpu,cpu" in out for out in outs)
 
 
 @pytest.mark.cuda

@@ -180,7 +180,9 @@ def test_searcher_shape(searchers, segs):
     assert ps.nd_pad == js.nd_pad == 128
     assert ps.total_docs == js.total_docs == 400
     np.testing.assert_array_equal(ps._doc_base, js._doc_base[: ps.S])
-    assert ps.local == list(range(7)) and make_mesh() == (None, 0, 1)
+    assert ps.local == list(range(7))
+    assert make_mesh(["cpu"]) == (None, 0, 1, (torch.device("cpu"),)) == ps.mesh
+    assert ps.shards == [(0, torch.device("cpu"), list(range(7)))]
 
 
 @pytest.mark.parametrize("scorer", [BM25(), TFIDF()], ids=["bm25", "tfidf"])
@@ -483,7 +485,8 @@ def test_packed_upload_equals_per_array_uploads(scale_searchers, monkeypatch):
     phrase keys and weights), rebuilt from the group's one packed buffer,
     equals the per-array upload it replaces (``ShardedSearcher._up``):
     dtype, shape and bits, each section 256-byte aligned; the segments'
-    resident tensors pass as they are."""
+    resident tensors pass as they are. One buffer per group and shard: here
+    one shard holds every segment."""
     from test_torch_fused import _compare_tree
 
     import iresearch_tpu_torch.parallel.sharded as sh
@@ -501,9 +504,90 @@ def test_packed_upload_equals_per_array_uploads(scale_searchers, monkeypatch):
             calls = [c for c in prep._calls if c[6] == gi]
             assert len(calls) == len(trees) == len(ps.local)
             for c, raw in zip(calls, trees):
-                n += _compare_tree(c[3], raw, prep._packs[gi][1])
+                n += _compare_tree(c[3], raw, prep._packs[gi][0][1])
         tiers = {c[0] for c in prep.calls}
         assert n > 0 and ({"wand", "gridmix", "direct"} <= tiers if wand else "aux" in tiers), tiers
+
+
+# --- the mesh of devices: several shards in one process ----------------------
+
+MESH_CASES = [("segs", 2), ("segs", 4), ("segs", 8), ("scale", 2), ("scale", 4)]
+# the WAND queries of a mesh that the module's JAX searchers do not span:
+# JAX compiles each group anew there (~3 s a group at per_shard 4), so a
+# part of the mix: a conjunction, an expansion and a WAND disjunction; on
+# the 16,384-doc index a dense term, a sparse one, gridmix and a phrase
+MESH_WAND = {
+    "segs": [WAND_QUERIES[i] for i in (3, 5, 8)],
+    "scale": [SCALE_QUERIES[i] for i in (0, 1, 4, 8)],
+}
+
+
+@pytest.mark.parametrize("index,D", MESH_CASES, ids=[f"{i}-{d}" for i, d in MESH_CASES])
+def test_mesh_of_devices_matches_jax(request, index, D):
+    """``ShardedSearcher(segments, devices=["cpu"] * D)`` against the JAX
+    package's searcher over a mesh of D virtual devices: the same D, S,
+    ``per_shard`` and doc bases, segment ``s`` on shard ``s // per_shard``
+    (padding segments left out: D = 8 over the seven segments leaves the
+    last shard without one), and the same results, fused and eager, for
+    WAND and the keys-form phrases (``_hold``: the exactness gate against
+    JAX and ``HostQuery``). The 16,384-doc index takes D = 2 and 4: its
+    JAX uniform dense pools stack the real segments only. Where the
+    module's JAX searcher spans another D, the WAND run takes
+    ``MESH_WAND``."""
+    import jax
+
+    from iresearch_tpu.parallel import ShardedSearcher as JaxSearcher
+    from iresearch_tpu.parallel import make_mesh as jax_mesh
+
+    if index == "segs":
+        jsegs, psegs = request.getfixturevalue("segs")
+        js = request.getfixturevalue("searchers")[0]
+        runs = [(WAND_QUERIES, True), (PHRASES, False)]
+    else:
+        jsegs, psegs = request.getfixturevalue("scale")
+        js = request.getfixturevalue("scale_searchers")[0]
+        runs = [(SCALE_QUERIES, True)]
+    if js.D != D:
+        js = JaxSearcher(jsegs, jax_mesh(jax.devices()[:D]))
+        runs[0] = (MESH_WAND[index], True)
+    cpu = torch.device("cpu")
+    ps = ShardedSearcher(psegs, devices=["cpu"] * D)
+    assert (ps.D, ps.S, ps.per_shard) == (js.D, js.S, js.per_shard) == (D, js.S, js.S // D)
+    assert ps.mesh == (None, 0, 1, (cpu,) * D) and ps.device == cpu
+    np.testing.assert_array_equal(ps._doc_base, js._doc_base)
+    assert ps.shards == [
+        (g, cpu, [si for si in range(js.S) if si // js.per_shard == g and si < len(psegs)])
+        for g in range(D)]
+    assert ps.local == list(range(len(psegs)))
+    for filters, wand in runs:
+        _jprep, pprep = _hold(filters, (js, ps), psegs, BM25(), wand)
+        assert all(len(packs) == D for packs in pprep._packs)
+        keys = _keys_form(pprep)
+        assert all(keys) if not wand else any(keys) == (index == "scale" or D == 8)
+        _same_runs(pprep.run(10), pprep.run(10, fused=False))
+
+
+def test_group_entry_holds_every_shard(segs, monkeypatch):
+    """At ``IRS_FUSED_CACHE_MAX`` = the number of signature groups, a pass
+    over 8 shards (7 of them holding a segment) evicts none of its own
+    graphs: a group's entry in the "sharded" LRU holds a pass on each shard
+    with segments, so the LRU counts groups, and the second run hits every
+    group. An entry per graph would have evicted all but the last groups'
+    within the first pass."""
+    from iresearch_tpu_torch.exec import batch as B
+
+    B.clear_fused_cache()
+    ps = ShardedSearcher(segs.port, devices=["cpu"] * 8)
+    prep = ps.prepare_many([to_port(f) for f in WAND_QUERIES], to_port(BM25()), wand=True)
+    monkeypatch.setattr(B, "_FUSED_CACHE_MAX", len(prep.groups))
+    first = prep.run(10)
+    entries = _sharded_entries(prep)
+    assert len(prep.groups) > 1 and len(B._FUSED_KINDS["sharded"]) == len(prep.groups)
+    assert all(e is not None and len(e.passes) == 7 for e in entries)
+    assert len({id(p) for e in entries for p in e.passes}) == 7 * len(entries)
+    _same_runs(prep.run(10), first)
+    assert _sharded_entries(prep) == entries and all(e.hits == 1 for e in entries)
+    B.clear_fused_cache()
 
 
 _RANK = r"""
