@@ -195,7 +195,19 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    (256 docs a segment, one segment a shard, written by the port's own
    writer; term, WAND Or, min-match, And, phrase and gridmix queries
    against the host oracle, fused against eager, every wrapper call
-   against plain).
+   against plain);
+18. the port's benchmark entry points (``iresearch_tpu_torch/bench*.py``,
+   the counterparts of the repo's ``bench.py``, ``bench_build.py`` and
+   ``bench_micro.py``): ``bench.run`` over the 5M-doc segment with
+   ``bench.py``'s windows (single-query mean over 100 runs and p50/p95/p99
+   over 60, the breadth categories, the batched pass for 2 s, serving for
+   3 s, 25 queries of the pass through the oracle gate),
+   ``bench_build.run`` at 20,000 docs with 4 threads and
+   ``bench_micro.run``. The bench's last-line object must carry its keys
+   and an empty ``failed``; K1, K2 and both forms of K3 must launch in the
+   three; every wrapper call of one batched pass of the bench is held
+   against plain, and the micro table's decode row against K3's plain
+   version; their numbers are printed.
 
 The port and this script import nothing of ``jax`` or of the JAX package
 ``iresearch_tpu``; the run fails if either was loaded.
@@ -206,8 +218,8 @@ phase 6 (a graph replay counts the launches its capture recorded), the
 tier batch of phase 8, one replay of each tier's single query, the rows
 and one replay of phase 9's queries, the replayed index pass of phase
 10, one replayed sharded pass of phase 12, the replayed pass over phase
-13's written index, phase 14's device search, phase 16's workers and
-phase 17's replayed mesh pass and dryrun),
+13's written index, phase 14's device search, phase 16's workers,
+phase 17's replayed mesh pass and dryrun and phase 18's entry points),
 then, as its last line, ``{"ok": true,
 "device": {...}}``. Any failure raises: the exit code is not 0 and the
 last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
@@ -776,46 +788,26 @@ def per_query(grouped, nq):
 
 
 def oracle_topk(flt, sr, scorer, k):
-    """``HostQuery.top_k`` for one segment, ordered with numpy instead of
-    a Python loop over every match."""
-    from iresearch_tpu_torch.search.host_eval import HostQuery
+    """``HostQuery.top_k`` for one segment (``bench_mix.oracle_topk``)."""
+    from iresearch_tpu_torch import bench_mix
 
-    r = HostQuery(flt, [sr], scorer).execute(0)
-    docs = np.flatnonzero(r.match)
-    sc = r.score[docs]
-    o = np.lexsort((docs, -sc))[:k]
-    return docs[o], sc[o]
+    return bench_mix.oracle_topk(flt, [sr], scorer, k)
 
 
 def assert_gate(gv, gd, wd, wv, what):
-    """The repo's exactness gate (as tests/topk_util.py applies it)
-    on one top-k: (gv, gd) with -inf for non-matches against the matches
-    (wd, wv) of a reference in (score desc, doc asc) order — same matches,
-    scores to rtol 1e-5, doc order exact except for swaps inside
-    near-ties."""
-    fin = np.isfinite(gv)
-    gd, gv = gd[fin], gv[fin]
-    if len(gd) != len(wd):
-        raise AssertionError(f"{what}: {len(gd)} vs {len(wd)} hits")
-    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-6, err_msg=what)
-    want = dict(zip(wd.tolist(), wv.tolist()))
-    for g, w, s in zip(gd.tolist(), wd.tolist(), wv.tolist()):
-        if g != w and not (g in want and abs(want[g] - s) <= 1e-5 * abs(s) + 1e-6):
-            raise AssertionError(f"{what}: doc {g} vs {w}")
+    """The repo's exactness gate on one top-k (``bench_mix.assert_gate``)."""
+    from iresearch_tpu_torch import bench_mix
+
+    bench_mix.assert_gate(gv, gd, wd, wv, what)
 
 
 def check_oracle(vals, docs, tasks, sr, scorer, k):
     """5 queries per category of the mix against the numpy oracle."""
-    seen = Counter()
-    n = 0
-    for qi, (cat, flt) in enumerate(tasks):
-        if seen[cat] >= PER_CATEGORY_ORACLE:
-            continue
-        seen[cat] += 1
-        wd, wv = oracle_topk(flt, sr, scorer, k)
-        assert_gate(vals[qi], docs[qi], wd, wv, f"oracle q{qi} {cat}")
-        n += 1
-    print(f"oracle (HostQuery, numpy): {n} queries {dict(seen)} pass the exactness gate")
+    from iresearch_tpu_torch import bench_mix
+
+    seen = bench_mix.check_oracle(vals, docs, tasks, [sr], scorer, k, PER_CATEGORY_ORACLE)
+    print(f"oracle (HostQuery, numpy): {sum(seen.values())} queries {dict(seen)} pass the "
+          f"exactness gate")
 
 
 def profile_passes(torch, run, path, kind, smi, calls=(), passes=5):
@@ -1430,25 +1422,12 @@ _ORACLE = {}  # phases 10 and 12 hold the same queries against the oracle
 
 
 def oracle_topk_index(flt, srs, scorer, k):
-    """``HostQuery`` over every segment (index-wide stats), merged with
-    numpy in (score desc, global doc asc) order; kept per query."""
-    from iresearch_tpu_torch.search.host_eval import HostQuery
+    """``bench_mix.oracle_topk`` over every segment, kept per query."""
+    from iresearch_tpu_torch import bench_mix
 
     key = (flt, tuple(sr.serial for sr in srs), scorer, k)
-    if key in _ORACLE:
-        return _ORACLE[key]
-
-    hq = HostQuery(flt, srs, scorer)
-    docs, sc, base = [], [], 0
-    for s, sr in enumerate(srs):
-        r = hq.execute(s)
-        d = np.flatnonzero(r.match)
-        docs.append(d + base)
-        sc.append(r.score[d])
-        base += sr.num_docs
-    docs, sc = np.concatenate(docs), np.concatenate(sc)
-    o = np.lexsort((docs, -sc))[:k]
-    _ORACLE[key] = docs[o], sc[o]
+    if key not in _ORACLE:
+        _ORACLE[key] = bench_mix.oracle_topk(flt, srs, scorer, k)
     return _ORACLE[key]
 
 
@@ -2631,6 +2610,64 @@ def run_multihost(smi):
     return {name: total[name] for name in launches}
 
 
+BENCH_LINE_KEYS = ("metric", "value", "unit", "device", "power_limit_w", "failed")
+BENCH_BUILD_DOCS = 20_000
+BENCH_BUILD_THREADS = 4
+
+
+def run_bench(torch, sr, dev, smi, kind):
+    """Phase 18: the port's three benchmark entry points on the card.
+    ``bench.run`` over the 5M-doc segment with ``bench.py``'s windows
+    (its 25 oracle queries inside), ``bench_build.run`` at 20,000 docs with
+    4 threads and ``bench_micro.run``; the launch counts are reset just
+    before the first and read just after the last. Then every wrapper call
+    of one batched pass of the bench is held against the plain versions
+    (``check_calls``) and the micro table's decode row against K3's plain
+    version. Returns the launches."""
+    from iresearch_tpu_torch import bench, bench_build, bench_micro
+    from iresearch_tpu_torch.formats.bitpack import pack_blocks
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.ops import decode as dc
+
+    def say(*a):
+        print("bench:", *a, flush=True)
+
+    kb.reset_launch_counts()
+    t1 = time.perf_counter()
+    res = bench.run([sr], device=dev, log=say)
+    t2 = time.perf_counter()
+    built = bench_build.run(BENCH_BUILD_DOCS, BENCH_BUILD_THREADS, device=dev, log=say)
+    t3 = time.perf_counter()
+    rows = bench_micro.run(device=dev)
+    t4 = time.perf_counter()
+    launches = kb.launch_counts()
+    line = json.loads(json.dumps(res.line))
+    missing = [key for key in BENCH_LINE_KEYS if key not in line]
+    if missing or line["failed"] or line["device"] != kind or line["value"] <= 0:
+        raise AssertionError(f"bench line: missing {missing}, {line}")
+    print(f"bench line: {json.dumps(line)}")
+    print(f"bench_build line: {json.dumps(built.line)}")
+    print(f"bench_micro ({smi}):")
+    width = max(len(n) for n, _t in rows)
+    for name, t in rows:
+        print(f"  {name:<{width}}  {t * 1e3:10.4f} ms")
+    print(f"bench {t2 - t1:.3f} s, bench_build {t3 - t2:.3f} s, bench_micro {t4 - t3:.3f} s; "
+          f"launches over the three {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched by the bench entry points")
+    checked = check_calls(torch, res.prepared, "bench pass")
+    print(f"bench pass, wrapper calls held against plain: {dict(checked)}")
+    vals = np.random.default_rng(0).integers(0, 256, size=(4096, 128), dtype=np.uint64)
+    args, kw = bench_micro.decode_args(pack_blocks(vals.astype(np.uint32), 8), dev)
+    got, want = dc.decode_rows(*args, **kw), dc.decode_rows_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("bench_micro's decode row: K3 differs from plain")
+    print(f"bench_micro's decode row: K3 bit-exact against plain on {args[3].shape[0]} blocks")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=5_000_000)
@@ -2829,6 +2866,10 @@ def main() -> int:
     mesh_launches = run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one_shard,
                              args.profile)
     phase("17 mesh", t0)
+
+    t0 = time.perf_counter()
+    bench_launches = run_bench(torch, sr, dev, smi, kind)
+    phase("18 bench", t0)
     if args.profile:
         profile_passes(torch, prep.run_grouped, args.profile, kind, smi, prep.calls)
         profile_tiers(torch, tier_prep, smi)
@@ -2845,7 +2886,7 @@ def main() -> int:
                   launches_single=single_launches, launches_phrase=phrase_launches, launches_index=index_launches,
                   launches_sharded=sharded_launches, launches_ingest=ingest_launches,
                   launches_cli=cli_launches, launches_multihost=multihost_launches,
-                  launches_mesh=mesh_launches)
+                  launches_mesh=mesh_launches, launches_bench=bench_launches)
     for name in kb.KERNELS:
         if sum(c[name] for c in counts.values()) <= 0:
             raise AssertionError(f"kernel {name} never launched on a main path")

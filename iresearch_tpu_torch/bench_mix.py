@@ -10,12 +10,16 @@ and task ranks (``bench.py:57-86,118-172,203-226,305-345``):
   index of several segments gives segment ``si`` the seed ``42 + si``;
 * 80 queries each of HighTerm (df ranks 2-81), MedTerm (200-279), LowTerm
   (2000-2079), AndHighMed and OrHighMed (pairs of High and Med terms).
+
+It also holds the exactness gate that the bench and the smoke run apply
+to a top-k (``oracle_topk``, ``assert_gate``, ``check_oracle``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -155,13 +159,14 @@ def task_mix(sr) -> List[Tuple[str, object]]:
     return tasks
 
 
-def breadth_tasks(sr) -> List[Tuple[str, object, bool]]:
+def breadth_tasks(sr, num_docs: Optional[int] = None) -> List[Tuple[str, object, bool]]:
     """``bench.py``'s single-query breadth categories over reader ``sr``
     as (name, filter, wand) (``bench.py:305-345``): Prefix is a 3-char
     prefix over a rare band, Fuzzy1 an edit distance of 1, both with the
     reference's ``scored_terms_limit=16``; only OrHigh4+WAND runs with
-    ``wand=True``; PrefixHot joins from 1M docs up. ``Phrase`` runs on the
-    device under the single query's default (``exec/phrase.py``)."""
+    ``wand=True``; PrefixHot joins from 1M docs up (the index's
+    ``num_docs``, ``sr``'s where None). ``Phrase`` runs on the device under
+    the single query's default (``exec/phrase.py``)."""
     from iresearch_tpu_torch.search import filters as F
 
     term_at, high, med, low = _ranked(sr)
@@ -181,11 +186,63 @@ def breadth_tasks(sr) -> List[Tuple[str, object, bool]]:
         ("MinMatch2High2Med", F.Or(
             T(high[3]), T(high[4]), T(med[3]), T(med[4]), min_match=2), False),
     ]
-    if sr.num_docs >= 1_000_000:
+    if (sr.num_docs if num_docs is None else num_docs) >= 1_000_000:
         tasks.append(
             ("PrefixHot", F.ByPrefix("body", "t00", scored_terms_limit=16), False)
         )
     return tasks
+
+
+def oracle_topk(flt, srs, scorer, k: int):
+    """(docs, scores) of ``HostQuery`` over the segments ``srs`` (index-wide
+    stats), the matches in (score desc, global doc asc) order, first ``k``:
+    the numpy oracle, ordered with numpy instead of a Python loop over
+    every match."""
+    from iresearch_tpu_torch.search.host_eval import HostQuery
+
+    hq = HostQuery(flt, list(srs), scorer)
+    docs, sc, base = [], [], 0
+    for s, sr in enumerate(srs):
+        r = hq.execute(s)
+        d = np.flatnonzero(r.match)
+        docs.append(d + base)
+        sc.append(r.score[d])
+        base += sr.num_docs
+    docs, sc = np.concatenate(docs), np.concatenate(sc)
+    o = np.lexsort((docs, -sc))[:k]
+    return docs[o], sc[o]
+
+
+def assert_gate(gv, gd, wd, wv, what: str) -> None:
+    """The repo's exactness gate (as ``tests/topk_util.py`` applies it) on
+    one top-k: (gv, gd) with -inf for non-matches against the matches
+    (wd, wv) of a reference in (score desc, doc asc) order: the same
+    matches, scores to rtol 1e-5, doc order exact except for swaps inside
+    near-ties. Raises ``AssertionError``."""
+    gv, gd = np.asarray(gv), np.asarray(gd)
+    fin = np.isfinite(gv)
+    gd, gv = gd[fin], gv[fin]
+    if len(gd) != len(wd):
+        raise AssertionError(f"{what}: {len(gd)} vs {len(wd)} hits")
+    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-6, err_msg=what)
+    want = dict(zip(wd.tolist(), wv.tolist()))
+    for g, w, s in zip(gd.tolist(), wd.tolist(), wv.tolist()):
+        if g != w and not (g in want and abs(want[g] - s) <= 1e-5 * abs(s) + 1e-6):
+            raise AssertionError(f"{what}: doc {g} vs {w}")
+
+
+def check_oracle(vals, docs, tasks, srs, scorer, k: int, per_category: int = 5) -> Counter:
+    """The first ``per_category`` queries of each category of ``tasks``
+    ([(category, filter)]) through the gate: row ``qi`` of ``vals`` and
+    ``docs`` (global docs, -inf for non-matches) against ``oracle_topk``
+    over ``srs``. Returns the queries checked per category."""
+    seen = Counter()
+    for qi, (cat, flt) in enumerate(tasks):
+        if seen[cat] < per_category:
+            seen[cat] += 1
+            wd, wv = oracle_topk(flt, srs, scorer, k)
+            assert_gate(vals[qi], docs[qi], wd, wv, f"oracle q{qi} {cat}")
+    return seen
 
 
 def tier_tasks(sr) -> List[Tuple[str, object, Dict[str, object]]]:

@@ -9,8 +9,9 @@ where there is no card instead of continuing on the CPU. The tests pass
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import weakref
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,6 +23,28 @@ def require_cuda() -> torch.device:
             "no CUDA device: torch.cuda.is_available() is False"
         )
     return torch.device("cuda", 0)
+
+
+def describe(device: torch.device) -> Tuple[str, Optional[float]]:
+    """(name, power limit in W) of a card: ``torch.cuda.get_device_name``
+    and the limit that ``nvidia-smi`` reads (None where it cannot); the
+    device's own name and None for any other device. A card set below its
+    full power limit runs slower under load, so every measurement names
+    both."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return str(device), None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    name = torch.cuda.get_device_name(index)
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=power.limit",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout
+        return name, float(out.strip().splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return name, None
 
 
 def runs_plain(t: torch.Tensor) -> bool:

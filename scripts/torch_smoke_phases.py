@@ -2,7 +2,8 @@
 query's breadth categories and tiers, fused and eager; 9 phrases; 12 the
 sharded executor over the three-segment index, fused and eager; 14 the
 CLI, 15 embedding training, 16 the multi-process dryrun, 17 the mesh of
-devices over the three-segment index), and two
+devices over the three-segment index, 18 the benchmark entry points over
+the first segment), and two
 measurements behind their design:
 
 * ``--gloo``: whether a ``gloo`` group's ``all_gather`` takes CUDA tensors
@@ -23,7 +24,7 @@ shard and with phase 17's four shards on one card, in turns.
 ``bits`` runs phase 8's tier batch and each tier's single query 30 times
 each way (eager, fused) and prints, per tier, how their scores differ from
 the first eager run's: in docs, in ulps, or in the sign of a zero.
-``--docs`` sets the first segment's docs for phases 8, 9 and 12 (5M, as in
+``--docs`` sets the first segment's docs for phases 8, 9, 12 and 18 (5M, as in
 ``chip_smoke.py``; the index of phase 12 adds a quarter of it and 1,000
 docs, built or loaded from ``.bench_cache/``); phase 12 holds the sharded
 result against ``prepare_all``'s over the same index.
@@ -213,7 +214,7 @@ def eager_turns(torch, srs, dev, smi, turns=2):
 
 
 def run_query_phase(torch, cs, step, index, dev, smi, profile=None):
-    """Phase 8, 9, 12 or 17 of ``chip_smoke.py`` on the segments
+    """Phase 8, 9, 12, 17 or 18 of ``chip_smoke.py`` on the segments
     ``index(n)`` gives (phases 12 and 17 with ``chip_smoke.py``'s profiler
     breakdown, fused and eager, when ``profile`` names a file; phase 17
     held against a one-shard pass of its own, not phase 12's)."""
@@ -232,6 +233,8 @@ def run_query_phase(torch, cs, step, index, dev, smi, profile=None):
         score_bits(torch, cs, index(1)[0], dev, smi)
     elif step == "eager":
         eager_turns(torch, index(3), dev, smi)
+    elif step == "18":
+        print(cs.run_bench(torch, index(1)[0], dev, smi, kind))
     elif step == "9":
         sr = index(1)[0]
         kern = {name: {} for name in kb.KERNELS}
@@ -257,7 +260,7 @@ def run_query_phase(torch, cs, step, index, dev, smi, profile=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*",
-                    choices=["8", "9", "12", "14", "15", "16", "17", "bits", "eager"])
+                    choices=["8", "9", "12", "14", "15", "16", "17", "18", "bits", "eager"])
     ap.add_argument("--docs", type=int, default=5_000_000)
     ap.add_argument("--profile", metavar="FILE",
                     help="phases 12, 17: also profile a fused and an eager pass; tables to FILE.*")
@@ -310,7 +313,7 @@ def main() -> int:
                     gloo_check()
                 elif step == "gather":
                     gather_forms(torch, cs)
-                elif step in ("8", "9", "12", "17", "bits", "eager"):
+                elif step in ("8", "9", "12", "17", "18", "bits", "eager"):
                     run_query_phase(torch, cs, step, index, dev, smi, args.profile)
                 elif step == "14":
                     print(cs.run_cli(torch, 1_250_000, dev, smi, tmp))
