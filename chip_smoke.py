@@ -196,6 +196,21 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    writer; term, WAND Or, min-match, And, phrase and gridmix queries
    against the host oracle, fused against eager, every wrapper call
    against plain);
+19. (run after 17, before 18) the NCCL mesh over phase 10's index: an
+   NCCL group of one process opened here on cuda:0 and passed as
+   ``group=`` to ``ShardedSearcher(srs, group=..., devices=[cuda:0] *
+   4)``, one CUDA graph per signature group holding every shard's
+   runners, the ``all_gather`` and the re-rank (``run_nccl``): the second
+   pass replays with no synchronise and no call into
+   ``torch.distributed``, launches what phase 17's pass launched (K3's
+   scored form per group graph printed), every wrapper call held against
+   plain, the result against the eager pass, phase 17's and phase 12's
+   (docs equal, scores rtol 1e-5); the joins alone between events;
+   ``MESH_PASSES`` timed passes each way; the group destroyed. Where two
+   or more cards are visible, one process per card in an NCCL group over
+   the segment files of phase 10 (``serve_multihost``), each printing its
+   ms a pass fused and eager, its card's idle share and its result, which
+   must equal the one-card result;
 18. the port's benchmark entry points (``iresearch_tpu_torch/bench*.py``,
    the counterparts of the repo's ``bench.py``, ``bench_build.py`` and
    ``bench_micro.py``): ``bench.run`` over the 5M-doc segment with
@@ -219,7 +234,8 @@ tier batch of phase 8, one replay of each tier's single query, the rows
 and one replay of phase 9's queries, the replayed index pass of phase
 10, one replayed sharded pass of phase 12, the replayed pass over phase
 13's written index, phase 14's device search, phase 16's workers,
-phase 17's replayed mesh pass and dryrun and phase 18's entry points),
+phase 17's replayed mesh pass and dryrun, phase 19's replayed pass (and
+its workers' on several cards) and phase 18's entry points),
 then, as its last line, ``{"ok": true,
 "device": {...}}``. Any failure raises: the exit code is not 0 and the
 last line is never printed. Usage: ``python3 chip_smoke.py`` (``--docs
@@ -263,14 +279,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PER_CATEGORY_ORACLE = 5
 PASSES = 20  # timed batched passes
-# timed sharded passes each way (eager 2-3 s each: cut from 20 to 5 to make
-# room for phases 14-16, then to 3 when the fused passes and 5 serving
-# requests joined phase 12)
-SHARDED_PASSES = 3
+# timed sharded passes each way, in each of both_ways' four turns (eager
+# 2-4 s each: cut from 20 to 5 to make room for phases 14-16, to 3 when the
+# fused passes and 5 serving requests joined phase 12, and to 1 when phase
+# 19 joined: the whole script took 1,128 s of its 1,200 s on a slow host)
+SHARDED_PASSES = 1
 SHARDED_REQUESTS = 5  # fresh prepare_many requests served in phase 12
 SINGLE_REPS = 20  # timed runs per breadth category and tier (bench.py's 20)
-MESH_PASSES = 2  # timed mesh passes each way (phase 17)
+MESH_PASSES = 1  # timed mesh passes each way and turn (phases 17, 19; cut from 2 as above)
 MESH_SHARDS_ONE_CARD = 4  # phase 17's shards where one card is visible
+NCCL_SHARDS = 4  # phase 19's shards on cuda:0 in its group of one process
 GRAPH_INNER = 10  # copies of a call list in one captured graph
 GRAPH_REPLAYS = 20  # timed replays of that graph
 
@@ -1883,7 +1901,8 @@ def run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one_shard, profile
     ms between events with its inputs ready), ``MESH_PASSES`` timed passes
     each way and JAX's ``dryrun_multichip`` on the same devices
     (``run_mesh_dryrun``). Returns the launches of one replayed pass and
-    of the dryrun, summed."""
+    of the dryrun, summed, the launches of the pass alone and its result
+    (vals, docs) as numpy arrays."""
     from iresearch_tpu_torch.exec import batch as B
     from iresearch_tpu_torch.kernels import build as kb
     from iresearch_tpu_torch.parallel import ShardedSearcher
@@ -1975,7 +1994,7 @@ def run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one_shard, profile
                            f"{profile}.mesh.{'fused' if fused else 'eager'}", kind, smi, passes=1)
     del prep, ss, eager, out
     B.clear_fused_cache()
-    return Counter(launches) + run_mesh_dryrun(torch, devices, smi)
+    return Counter(launches) + run_mesh_dryrun(torch, devices, smi), launches, (vals, docs)
 
 
 def run_mesh_dryrun(torch, devices, smi):
@@ -2036,6 +2055,170 @@ def run_mesh_dryrun(torch, devices, smi):
           f"{time.perf_counter() - t1:.3f} s on {smi}")
     B.clear_fused_cache()
     return Counter(launches)
+
+
+def free_port():
+    """A free TCP port on 127.0.0.1."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_nccl(torch, srs, paths, tasks, scorer, k, smi, kind, mesh_launches, mesh_out,
+             one_shard):
+    """Phase 19: the 400-query mix over phase 10's index through an NCCL
+    group of one process, opened here on cuda:0 (``tcp://127.0.0.1``, rank
+    0 of 1, the communicator made at once) and passed as ``group=``:
+    ``ShardedSearcher(srs, group=..., devices=[cuda:0] * NCCL_SHARDS)``
+    over the resident segments, one CUDA graph per signature group holding
+    every shard's runners, the all_gather and the re-rank. The first pass
+    captures them under the sync debug mode set to raise; the second only
+    replays, with no synchronise and no call into ``torch.distributed``,
+    and launches what phase 17's pass ``mesh_launches`` launched; K3's
+    scored form per group graph printed; every wrapper call held bit for
+    bit against its plain version; the result against the first pass,
+    the eager pass, phase 17's ``mesh_out`` and phase 12's ``one_shard``
+    (docs equal, scores rtol 1e-5, bit-equality counted); the joins alone
+    (copies, concat, all_gather, re-rank, between events); ``MESH_PASSES``
+    timed passes each way. The group is destroyed, its graphs freed first.
+    Where two or more cards are visible, ``run_nccl_workers`` over the
+    segment files ``paths``. Returns the launches of the replayed pass
+    (and of the workers' replays)."""
+    import torch.distributed as dist
+
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.parallel import ShardedSearcher
+    from iresearch_tpu_torch.parallel.multihost import dist_calls
+
+    B.clear_fused_cache()
+    dev = torch.device("cuda", 0)
+    filters = [f for _c, f in tasks]
+    t1 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=dev)
+    init_s = time.perf_counter() - t1
+    try:
+        t1 = time.perf_counter()
+        ss = ShardedSearcher(srs, group=dist.group.WORLD, devices=[dev] * NCCL_SHARDS)
+        prep = ss.prepare_many(filters, scorer, wand=True, k_max=k)
+        sync_all(torch)
+        prep_s = time.perf_counter() - t1
+        if not (ss.mesh.join_in_graph and ss.mesh.world == 1 and ss.D == NCCL_SHARDS):
+            raise AssertionError(f"nccl: mesh {ss.mesh} (join in graph "
+                                 f"{ss.mesh.join_in_graph}), D={ss.D}")
+        print(f"nccl: a group of one process over {dist.get_backend(ss.mesh.group)} (made in "
+              f"{init_s:.3f} s), {ss.D} shards on {dev}; shards (index, device, segments) "
+              f"{[(g, str(d), segs) for g, d, segs in ss.shards]}; prepare {prep_s:.3f} s")
+        (vals_t, docs_t), entries = sharded_first_pass(torch, prep, k, "nccl pass", smi)
+        if any(len(e.passes) != 1 or e.passes[0].graph is None or e.passes[0].device != dev
+               for e in entries):
+            raise AssertionError("nccl: a group is not one captured graph on cuda:0")
+        kb.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with dist_calls() as calls:
+                out = prep.run(k)
+                vals2 = torch.stack([v for v, _d in out])
+                docs2 = torch.stack([d for _v, d in out])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        packed = torch.stack([vals2.view(torch.int32), docs2]).cpu().numpy()
+        launches = kb.launch_counts()
+        k3 = [e.passes[0].launches.get("decode_score_rows", 0) for e in entries]
+        print(f"nccl pass: {len(entries)} graph replays (one a group: runners, all_gather, "
+              f"re-rank) with no synchronise and {sum(calls.values())} calls into "
+              f"torch.distributed; launches per pass {launches}; K3 scored per group graph "
+              f"{k3}; graph nodes per group {[e.passes[0].nodes for e in entries]}")
+        if sum(calls.values()) or any(e.hits != 1 for e in entries):
+            raise AssertionError(f"nccl: the replays called {dict(calls)} or missed a group")
+        if launches != mesh_launches or not launches.get("decode_score_rows") \
+                or sum(k3) != launches["decode_score_rows"]:
+            raise AssertionError(f"nccl: launches {launches} against phase 17's {mesh_launches}")
+        same_results(torch, [(vals_t, docs_t)], [(vals2, docs2)],
+                     "nccl pass: first and second fused run")
+        eager = prep.run(k, fused=False)
+        same_results(torch, [(vals2, docs2)], [(torch.stack([v for v, _d in eager]),
+                                               torch.stack([d for _v, d in eager]))],
+                     "nccl pass: fused and eager")
+        vals, docs = packed[0].view(np.float32), packed[1]
+        for (wv, wd), what in ((mesh_out, "phase 17's mesh pass"),
+                               (one_shard, "phase 12's one-shard pass")):
+            np.testing.assert_array_equal(docs, wd)
+            np.testing.assert_allclose(vals, wv, rtol=1e-5, atol=0.0)
+            print(f"nccl pass vs {what}: {len(tasks)} queries, docs equal, scores bit-equal in "
+                  f"{int((vals.view(np.int32) == wv.view(np.int32)).all(1).sum())} of "
+                  f"{len(tasks)} queries, the others within rtol 1e-5")
+        t1 = time.perf_counter()
+        checked = check_calls(torch, prep, "nccl, every shard")
+        print(f"nccl pass, wrapper calls held against plain: {dict(checked)} "
+              f"({time.perf_counter() - t1:.3f} s)")
+        for name, n in launches.items():
+            if n > checked[name]:
+                raise AssertionError(f"kernel {name}: {n} launches in the nccl pass, fewer checked")
+        # the joins alone: every group's shard candidates of one eager pass,
+        # copied, concatenated, gathered over NCCL and re-ranked
+        joins = []
+        real = ss._join
+        ss._join = lambda outs, q, kk: joins.append((outs, q, kk)) or real(outs, q, kk)
+        try:
+            prep.run(k, fused=False)
+        finally:
+            del ss._join
+        sync_all(torch)
+        join_ms = cuda_ms(torch, lambda: [real(*a) for a in joins], iters=10)
+        ms = both_ways(torch, lambda fused: prep.run(k, fused=fused), len(tasks), "nccl passes",
+                       smi, kind, passes=MESH_PASSES)
+        print(f"nccl joins ({len(joins)} groups: copies, concat, all_gather, re-rank): "
+              f"{join_ms:.4f} ms a pass between events, {join_ms / min(ms[True]):.4f} of the "
+              f"fastest fused pass, on {smi}")
+        del prep, ss, eager, out
+    finally:
+        B.clear_fused_cache()  # no graph outlives the communicator it holds
+        dist.destroy_process_group()
+    if torch.cuda.device_count() >= 2:
+        return Counter(launches) + run_nccl_workers(torch, paths, (vals, docs), smi)
+    return Counter(launches)
+
+
+def run_nccl_workers(torch, paths, want, smi):
+    """Phase 19 over every visible card: one process per card in an NCCL
+    group (``parallel/multihost.py:serve_multihost``), each opening the
+    segment files ``paths`` and holding its shard on its card, serving the
+    mix (the first pass captures, the second replays with no call into
+    ``torch.distributed``; ``MESH_PASSES`` passes each way, the busy share
+    of its card under the profiler). Every rank's result against the
+    one-card result ``want`` (docs equal, scores rtol 1e-5). Returns the
+    workers' launches of their replayed pass, summed."""
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.parallel.multihost import serve_multihost
+
+    B.clear_fused_cache()
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="nccl_", dir=os.path.dirname(paths[0])) as out:
+        outs, results = serve_multihost(paths, n, out, devices_per_proc=1, passes=MESH_PASSES)
+    total = Counter()
+    for pid, (log, got) in enumerate(zip(outs, results)):
+        join = re.search(rf"^MULTIHOST_JOIN process={pid} .*$", log, re.M)
+        line = re.search(rf"^MULTIHOST_INDEX process={pid} .* launches=(.*)$", log, re.M)
+        if join is None or line is None or " join=graph " not in join.group(0) \
+                or " dist_calls=0 " not in join.group(0):
+            raise AssertionError(f"nccl worker {pid}:\n{log[-3000:]}")
+        print(f"nccl worker {pid}: {join.group(0)}")
+        print(f"nccl worker {pid}: {line.group(0)}")
+        vals, docs = got[0].view(np.float32), got[1]
+        np.testing.assert_array_equal(docs, want[1])
+        np.testing.assert_allclose(vals, want[0], rtol=1e-5, atol=0.0)
+        print(f"nccl worker {pid}: its result equals the one-card result (docs equal, scores "
+              f"bit-equal in {int((vals.view(np.int32) == want[0].view(np.int32)).all(1).sum())}"
+              f" of {len(docs)} queries)")
+        total.update(json.loads(line.group(1)))
+    print(f"nccl workers: {n} processes, one card each, {time.perf_counter() - t1:.3f} s on {smi}")
+    return total
 
 
 def run_invert(torch, num_docs, seed, dev, smi):
@@ -2863,9 +3046,15 @@ def main() -> int:
     phase("16 multihost", t0)
 
     t0 = time.perf_counter()
-    mesh_launches = run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one_shard,
-                             args.profile)
+    mesh_launches, mesh_pass, mesh_out = run_mesh(torch, srs, tasks, scorer, k, smi, kind,
+                                                  merged, one_shard, args.profile)
     phase("17 mesh", t0)
+
+    t0 = time.perf_counter()
+    paths = [bench_mix.segment_path(n, cache_dir, si) for si, n in enumerate(seg_sizes)]
+    nccl_launches = run_nccl(torch, srs, paths, tasks, scorer, k, smi, kind, mesh_pass,
+                             mesh_out, one_shard)
+    phase("19 nccl", t0)
 
     t0 = time.perf_counter()
     bench_launches = run_bench(torch, sr, dev, smi, kind)
@@ -2886,7 +3075,8 @@ def main() -> int:
                   launches_single=single_launches, launches_phrase=phrase_launches, launches_index=index_launches,
                   launches_sharded=sharded_launches, launches_ingest=ingest_launches,
                   launches_cli=cli_launches, launches_multihost=multihost_launches,
-                  launches_mesh=mesh_launches, launches_bench=bench_launches)
+                  launches_mesh=mesh_launches, launches_nccl=nccl_launches,
+                  launches_bench=bench_launches)
     for name in kb.KERNELS:
         if sum(c[name] for c in counts.values()) <= 0:
             raise AssertionError(f"kernel {name} never launched on a main path")

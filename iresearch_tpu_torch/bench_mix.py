@@ -97,19 +97,25 @@ def build_segment_data(num_docs: int, seed: int = SEED):
     return SegmentData(num_docs, {"body": fpn}, {})
 
 
+def segment_path(num_docs: int, cache_dir: str, seg_index: int = 0) -> str:
+    """The file of segment ``seg_index`` (seed ``42 + seg_index``) in
+    ``cache_dir`` under ``bench.py``'s name (``bench.py:118-130``: segment 0
+    keeps the single-segment name, segment ``si`` gets the suffix
+    ``_s{42 + si}``): ``write_segment`` bytes."""
+    suffix = "" if seg_index == 0 else f"_s{SEED + seg_index}"
+    return os.path.join(cache_dir, f"seg_{num_docs}_{VOCAB}_v5{suffix}.bin")
+
+
 def load_or_build(num_docs: int, cache_dir: Optional[str], seg_index: int = 0):
     """(SegmentData, loaded_from_cache): segment ``seg_index`` of an index
-    (seed ``42 + seg_index``) from ``cache_dir`` under ``bench.py``'s file
-    name (``bench.py:118-130``: segment 0 keeps the single-segment name,
-    segment ``si`` gets the suffix ``_s{42 + si}``), else built (and
-    written there)."""
+    (seed ``42 + seg_index``) from its file in ``cache_dir``
+    (``segment_path``), else built (and written there)."""
     from iresearch_tpu_torch.formats.segment_io import read_segment, write_segment
 
     seed = SEED + seg_index
     path = None
     if cache_dir is not None:
-        suffix = "" if seg_index == 0 else f"_s{seed}"
-        path = os.path.join(cache_dir, f"seg_{num_docs}_{VOCAB}_v5{suffix}.bin")
+        path = segment_path(num_docs, cache_dir, seg_index)
         if os.path.exists(path):
             with open(path, "rb") as f:
                 return read_segment(f.read()), True

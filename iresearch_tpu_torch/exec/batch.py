@@ -733,6 +733,18 @@ _GRAPH_POOLS: Dict[torch.device, tuple] = {}
 # caches freed blocks per stream, so warm-ups on one stream reuse each
 # other's memory where a stream per capture would strand it
 _CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+# set inside a capture's warm-up run (``_FusedPass.capture``)
+_WARM_UP = threading.local()
+
+
+def warming_up() -> bool:
+    """True inside a fused pass's warm-up run, whose outputs are thrown
+    away. A body's collective makes no call there (``parallel/sharded.py:
+    _all_gather``): every rank of a group must issue the same collectives
+    in the same order, so a pass issues one collective a replay whether
+    its entry was a miss (warm-up, capture, replay) or a hit (replay),
+    which ranks need not share."""
+    return getattr(_WARM_UP, "on", False)
 
 
 def clear_fused_cache() -> None:
@@ -770,11 +782,11 @@ class _FusedPass:
     card, the CUDA graph of the pass over that copy, the graph's output
     buffer, its launches of each kernel per replay (counted at capture),
     its node count and how often a later call hit it. Its capture, loads
-    and replays run with its buffers' card current."""
+    and replays run with its ``device`` (its buffers' card) current."""
 
-    def __init__(self, bufs, kept) -> None:
+    def __init__(self, device, bufs, kept) -> None:
         self.bufs = tuple(b.clone() for b in bufs)
-        self.device = self.bufs[0].device
+        self.device = device
         self.kept = kept
         self.graph = None
         self.out = self.layout = None
@@ -791,7 +803,8 @@ class _FusedPass:
     def capture(self, body) -> None:
         """Run ``body`` once on a side stream as warm-up (it fills the
         plan and phrase memos, builds the kernels and lets the allocator
-        settle), then capture it into one graph. A failure raises."""
+        settle; a collective in it stands in locally, ``warming_up``),
+        then capture it into one graph. A failure raises."""
         dev = self.device
         with current_card(dev):
             cur = torch.cuda.current_stream(dev)
@@ -800,12 +813,20 @@ class _FusedPass:
                 side = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
-                body(self.bufs)
+                _WARM_UP.on = True
+                try:
+                    body(self.bufs)
+                finally:
+                    _WARM_UP.on = False
                 graph = torch.cuda.CUDAGraph()
                 t0 = time.perf_counter()
                 with kb.counted_apart() as launches:
-                    graph.capture_begin(pool=_GRAPH_POOLS.setdefault(
-                        dev, torch.cuda.graph_pool_handle()))
+                    # thread-local: this thread may not synchronise while it
+                    # captures, but other threads (NCCL's proxy, PyTorch's
+                    # watchdog) go on making their calls
+                    graph.capture_begin(
+                        pool=_GRAPH_POOLS.setdefault(dev, torch.cuda.graph_pool_handle()),
+                        capture_error_mode="thread_local")
                     try:
                         out, layout = _flat_outputs(body(self.bufs))
                         nodes = kb.capture_nodes(side)
@@ -837,19 +858,20 @@ class _FusedPass:
 
 class _FusedGroup:
     """A cached pass in parts, one per shard of the sharded executor (its
-    card's graph each): a ``_FusedPass`` per part in ``passes``, and how
-    often a later call hit the group."""
+    card's graph each), or one part holding a whole group body on an NCCL
+    mesh: a ``_FusedPass`` per part in ``passes``, and how often a later
+    call hit the group."""
 
     def __init__(self, passes) -> None:
         self.passes = tuple(passes)
         self.hits = 0
 
 
-def _new_pass(bufs, body, kept):
-    """A new entry for ``body`` over buffers like ``bufs``: on the card
-    its graph captured."""
-    entry = _FusedPass(bufs, kept)
-    if entry.bufs[0].is_cuda:
+def _new_pass(device, bufs, body, kept):
+    """A new entry for ``body`` over buffers like ``bufs`` on ``device``:
+    on the card its graph captured."""
+    entry = _FusedPass(device, bufs, kept)
+    if device.type == "cuda":
         entry.capture(body)
     return entry
 
@@ -877,26 +899,27 @@ def _run_fused(kind: str, key, bufs, body, kept=()):
     "single"): on a miss a new entry (on the card its graph captured), on
     a hit ``bufs`` copied into the entry's own."""
     with _FUSED_LOCK:
-        entry, hit = _cached(kind, key, lambda: _new_pass(bufs, body, kept))
+        entry, hit = _cached(kind, key, lambda: _new_pass(bufs[0].device, bufs, body, kept))
         if hit:
             entry.load(bufs)
         return entry.run(body)
 
 
 def _run_fused_group(kind: str, key, parts, kept=()):
-    """Per part ``(bufs, body)``, one per shard, the flat outputs of its
-    body through the ``_FusedGroup`` of ``key`` in the LRU of ``kind``
-    ("sharded"): on a miss every part captured on its card, on a hit each
-    part's buffers copied into its pass's own. The parts' replays are
-    issued back to back with no wait for a device between them, so that
-    distinct cards run at once."""
+    """Per part ``(device, bufs, body)`` (one per shard, or one for an
+    NCCL mesh's whole group body, whose ``bufs`` may be empty), the flat
+    outputs of its body through the ``_FusedGroup`` of ``key`` in the LRU
+    of ``kind`` ("sharded"): on a miss every part captured on its card, on
+    a hit each part's buffers copied into its pass's own. The parts'
+    replays are issued back to back with no wait for a device between
+    them, so that distinct cards run at once."""
     with _FUSED_LOCK:
         entry, hit = _cached(kind, key, lambda: _FusedGroup(
-            _new_pass(bufs, body, kept) for bufs, body in parts))
+            _new_pass(dev, bufs, body, kept) for dev, bufs, body in parts))
         if hit:
-            for p, (bufs, _body) in zip(entry.passes, parts):
+            for p, (_dev, bufs, _body) in zip(entry.passes, parts):
                 p.load(bufs)
-        return [p.run(body) for p, (_bufs, body) in zip(entry.passes, parts)]
+        return [p.run(body) for p, (_dev, _bufs, body) in zip(entry.passes, parts)]
 
 
 class _Rows(NamedTuple):

@@ -22,29 +22,38 @@ and per signature group and shard calls the single-segment runners of
 shard's segments' resident pools, at the GLOBAL ``nd_pad`` (the power of
 two of the largest segment) as every shard runs in the JAX package. Each
 segment's top-k, its doc base added, concatenates along the candidate
-axis; the shards' candidates are copied onto the mesh's first device
-(peer to peer between cards that allow it), ``torch.distributed
-.all_gather`` joins the processes' candidates where the group has more
-than one process, and one exact (score desc, doc asc) re-rank gives the
-global top-k.
+axis; the join (``_join``) copies the shards' candidates onto the mesh's
+first device (peer to peer between cards that allow it), concatenates
+them in shard order, gathers every process's candidates with one
+``all_gather_into_tensor`` where there is a group, and one exact (score
+desc, doc asc) re-rank gives the global top-k.
 
 Per searcher, field and segment the ``norms`` (clamped to 1, padded with
 1) and ``alive`` (padded with False) are held at ``nd_pad`` on the
 segment's shard's device, and the uniform dense pools are uploaded there
 on first use. A prepared batch packs each signature group's host-made
 arrays of each shard into one buffer and one upload to the shard's device
-(``exec/batch.py:_pack_args``), and ``run`` replays one CUDA graph per
-group and shard, the counterpart of the JAX package's one jitted
-``shard_map`` program per group (``_sharded_topk_batch``): the shard's
-segments' runners, the doc-base shift and the concat, and with a single
-shard the final re-rank too. Every shard's graph is issued before any
-candidate is copied, with no wait for a device between them, so that
-distinct cards run at once; the copy onto the first device, the
-``all_gather`` (``gloo`` stages CUDA tensors on the host, which a graph
-cannot hold) and the re-rank follow the replays. A group's graphs on
-every shard are one entry of ``exec/batch.py``'s "sharded" LRU, so a
+(``exec/batch.py:_pack_args``). Where the join runs depends on the group's
+backend (``Mesh.join_in_graph``):
+
+* **NCCL** (one process per card, every shard of a process on that
+  card): ``run`` replays one CUDA graph per signature group holding the
+  whole group body, every local shard's runners, the doc-base shift and
+  concat, the NCCL ``all_gather`` and the re-rank, the counterpart of the
+  JAX package's one ``shard_map`` program per group
+  (``_sharded_topk_batch``). The collective is in the graph, so a replay
+  makes no call into ``torch.distributed``; every rank replays every
+  group in the same order, a rank without segments a body that gives
+  ``-inf`` candidates.
+* **gloo, or no group** (ranks sharing a card or on the CPU): ``run``
+  replays one graph per group and shard (with a single shard the re-rank
+  in it too), every shard's issued before any candidate is copied, so
+  that distinct cards run at once; the join follows the replays, since
+  ``gloo`` stages CUDA tensors on the host, which a graph cannot hold.
+
+A group's graphs are one entry of ``exec/batch.py``'s "sharded" LRU, so a
 fresh ``prepare_many`` of the same structure on the same searcher replays
-them; ``run(fused=False)`` is the eager debug path.
+them; ``run(fused=False)`` runs the group body eagerly (the debug path).
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from iresearch_tpu_torch.exec.batch import (
     _run_fused_group,
     _run_wand,
     _template_key,
+    warming_up,
 )
 from iresearch_tpu_torch.exec.executor import (
     KERNELS,
@@ -86,7 +96,14 @@ _IMAX32 = 2**31 - 1
 class Mesh(namedtuple("Mesh", "group rank world devices")):
     """The shards a searcher spans: this process's ``devices`` (one shard
     each, in order) in every process of ``group`` (``rank`` of ``world``;
-    None with one process)."""
+    None with one process). ``join_in_graph`` (an attribute, which follows
+    from ``group``): the group is NCCL's, so the all_gather and the
+    re-rank run inside each group's graph."""
+
+    def __new__(cls, group, rank, world, devices, join_in_graph=False):
+        self = super().__new__(cls, group, rank, world, devices)
+        self.join_in_graph = join_in_graph
+        return self
 
     @property
     def size(self) -> int:
@@ -101,7 +118,14 @@ def make_mesh(devices=None, group=None) -> Mesh:
     named), every visible card when None (JAX's ``jax.devices()``; raises
     where there is none), times the processes of ``group`` when given, else
     of the default group where ``torch.distributed`` is initialized with
-    more than one process, else of this process alone."""
+    more than one process, else of this process alone. A group of one
+    process passed as ``group`` keeps its collective, as JAX's all_gather
+    runs whatever the size of its axis.
+
+    On an NCCL group the join runs inside each group's graph; that needs
+    every device of the process to be one card that no other rank holds
+    (NCCL puts one rank on a card), else this raises. It never falls back
+    to another backend."""
     import torch.distributed as dist
 
     if devices is None:
@@ -114,7 +138,55 @@ def make_mesh(devices=None, group=None) -> Mesh:
         if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
             return Mesh(None, 0, 1, devices)
         group = dist.group.WORLD
-    return Mesh(group, dist.get_rank(group), dist.get_world_size(group), devices)
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    nccl = dist.get_backend(group) == "nccl"
+    if nccl:
+        _own_card(devices, group, world)
+    return Mesh(group, rank, world, devices, nccl)
+
+
+def _own_card(devices, group, world: int) -> None:
+    """Raise unless ``devices`` are one card that no other rank of the
+    NCCL ``group`` holds (each rank's card told apart by its UUID, gathered
+    over the group: a collective that also makes the group's communicator
+    exist before any graph captures one)."""
+    import torch.distributed as dist
+
+    card = devices[0]
+    if card.type != "cuda" or any(d != card for d in devices):
+        raise ValueError(
+            f"an NCCL mesh needs all of the process's shards on one card of its own, got "
+            f"{[str(d) for d in devices]}; use a gloo group for the CPU or several cards")
+    uuid = str(torch.cuda.get_device_properties(card).uuid)
+    uuids = [None] * world
+    with torch.cuda.device(card):
+        dist.all_gather_object(uuids, uuid, group=group)
+    if uuids.count(uuid) > 1:
+        raise ValueError(
+            f"an NCCL mesh puts one rank on a card: {card} ({uuid}) is held by ranks "
+            f"{[r for r, u in enumerate(uuids) if u == uuid]}; use a gloo group for "
+            f"ranks that share a card")
+
+
+def _all_gather(vals, docs, mesh: Mesh):
+    """(vals, docs) [q, world * w] of every process's candidates ``vals``
+    f32 and ``docs`` i32 [q, w], rank by rank along the candidate axis (the
+    JAX package's ``moveaxis(all_gather(x), 0, 1).reshape(q, -1)``): the
+    pair in one ``all_gather_into_tensor`` into one preallocated [world *
+    2, q, w] buffer, with no wait on the host. In a capture's warm-up
+    (``exec/batch.py:warming_up``) the buffer is zeroed instead, so that a
+    miss issues the collectives a hit does."""
+    import torch.distributed as dist
+
+    q, w = vals.shape
+    mine = torch.stack([vals.view(torch.int32), docs])
+    got = torch.empty((mesh.world * 2, q, w), dtype=torch.int32, device=mine.device)
+    if warming_up():
+        got.zero_()
+    else:
+        dist.all_gather_into_tensor(got, mine, group=mesh.group)
+    both = got.view(mesh.world, 2, q, w).permute(1, 2, 0, 3).reshape(2, q, mesh.world * w)
+    return both[0].view(torch.float32), both[1]
 
 
 def _pow2(n: int) -> int:
@@ -177,6 +249,9 @@ class ShardedSearcher:
         self.mesh = make_mesh([device] if device is not None else devices, group)
         self.device = self.mesh.devices[0]
         self.D = self.mesh.size
+        # the shards' candidates meet in ``_join`` (several shards, or a
+        # group's collective); else the one shard re-ranks its own
+        self.joined = self.D > 1 or self.mesh.group is not None
         S = max(1, math.ceil(len(self.segments) / self.D) * self.D)
         self.S = S
         self.per_shard = S // self.D
@@ -734,8 +809,8 @@ class ShardedSearcher:
         """[vals, docs] of one shard from its segments' ``runs`` ([((vals,
         local docs), segment)]): the docs made global, the top-k lists
         concatenated along the candidate axis to ``per_shard * kk`` (the
-        padding segments given no candidate), and with a single shard in the
-        mesh the final re-rank."""
+        padding segments given no candidate), and where nothing joins the
+        shards (``joined``) the final re-rank."""
         vals = [v for (v, _d), _si in runs]
         docs = [d + int(self._doc_base[si]) for (_v, d), si in runs]
         pad = self.per_shard - len(runs)
@@ -744,16 +819,18 @@ class ShardedSearcher:
                                    device=dev))
             docs.append(torch.zeros((q, kk * pad), dtype=torch.int32, device=dev))
         vals, docs = torch.cat(vals, dim=1), torch.cat(docs, dim=1)
-        return list(topk_docs(vals, docs, kk) if self.D == 1 else (vals, docs))
+        return list((vals, docs) if self.joined else topk_docs(vals, docs, kk))
 
     def _join(self, outs, q: int, kk: int):
-        """Global (vals [q, kk], docs [q, kk]) of this process's shards'
+        """Global [vals [q, kk], docs [q, kk]] of this process's shards'
         candidates ``outs`` ([vals, docs] per shard, None for a shard
-        without segments): each copied onto the mesh's first device
-        (ordered after the current streams of both cards; peer to peer
-        where the cards allow it), concatenated in shard order, joined
-        across the group's processes by ``all_gather`` and re-ranked by
-        (score desc, doc asc) (the JAX package's ``sharded.py:848-863``)."""
+        without segments, which gives ``-inf`` candidates): each copied onto
+        the mesh's first device (ordered after the current streams of both
+        cards; peer to peer where the cards allow it), concatenated in shard
+        order, gathered across the group's processes (``_all_gather``) and
+        re-ranked by (score desc, doc asc) (the JAX package's
+        ``sharded.py:848-863``). Makes no host wait, so that a graph can
+        hold it on an NCCL mesh."""
         dev = self.device
         w = self.per_shard * kk
         vals = torch.cat([
@@ -762,15 +839,9 @@ class ShardedSearcher:
         docs = torch.cat([
             torch.zeros((q, w), dtype=torch.int32, device=dev) if o is None
             else o[1].to(dev, non_blocking=True) for o in outs], dim=1)
-        if self.mesh.world > 1:
-            import torch.distributed as dist
-
-            gv = [torch.empty_like(vals) for _ in range(self.mesh.world)]
-            gd = [torch.empty_like(docs) for _ in range(self.mesh.world)]
-            dist.all_gather(gv, vals, group=self.mesh.group)
-            dist.all_gather(gd, docs, group=self.mesh.group)
-            vals, docs = torch.cat(gv, dim=1), torch.cat(gd, dim=1)
-        return topk_docs(vals, docs, kk)
+        if self.mesh.group is not None:
+            vals, docs = _all_gather(vals, docs, self.mesh)
+        return list(topk_docs(vals, docs, kk))
 
     def search(
         self, flt: F.Filter, scorer: Optional[Scorer] = None, k: int = 10
@@ -804,7 +875,8 @@ class ShardedSearcher:
 class PreparedShardedBatch:
     """A sharded batch resident on the mesh: each signature group's
     host-made arrays of each shard in one packed upload to the shard's
-    device; ``run`` replays one CUDA graph per group and shard."""
+    device; ``run`` replays per group one CUDA graph of the whole group
+    body on an NCCL mesh, else one per group and shard."""
 
     def __init__(self, searcher: ShardedSearcher, groups, calls, kmax=None) -> None:
         self.searcher = searcher
@@ -843,12 +915,17 @@ class PreparedShardedBatch:
         checking a kernel at the real shapes (as ``PreparedBatch.calls``)."""
         return [c[:5] for c in self._calls]
 
+    def _live(self, gi: int):
+        """The local shards of group ``gi`` that hold segments."""
+        return [j for j, p in enumerate(self._packs[gi]) if p is not None]
+
     def fused_key(self, gi: int, kk: int) -> tuple:
         """Group ``gi``'s key in ``exec/batch.py``'s "sharded" LRU at top-
         ``kk``: per local shard with segments its global index and device,
         its runners, templates and kwargs, its long-lived tensors'
         addresses and its segments' doc bases; the padding, the mesh's size
-        (the re-rank is in the graph of a single shard) and ``kk``."""
+        and world, the group's queries, ``kk``, and where the join runs:
+        the NCCL group whose collective the graph holds, else None."""
         key = self._keys.get((gi, kk))
         if key is None:
             s = self.searcher
@@ -863,7 +940,9 @@ class PreparedShardedBatch:
                                   dev_args, buf),
                     tuple(int(s._doc_base[si]) for *_r, si in tps),
                 ))
-            key = self._keys[(gi, kk)] = ("sharded", tuple(parts), s.per_shard, s.D, kk)
+            key = self._keys[(gi, kk)] = (
+                "sharded", tuple(parts), s.per_shard, s.D, s.mesh.world,
+                len(self.groups[gi][0]), kk, s.mesh.group if s.mesh.join_in_graph else None)
         return key
 
     def _shard_body(self, gi: int, j: int, kk: int, q: int, kern=KERNELS):
@@ -884,15 +963,38 @@ class PreparedShardedBatch:
 
         return body
 
+    def _group_body(self, gi: int, kk: int, q: int, kern=KERNELS):
+        """``body(bufs)`` -> [vals, docs] [q, kk], group ``gi``'s global
+        top-``kk``: every local shard's body (``bufs``: one buffer per shard
+        with segments, in shard order; None: the batch's own), then the
+        join (``ShardedSearcher._join``), or with nothing to join the one
+        shard's re-ranked candidates. What an NCCL mesh captures per group;
+        the eager run of every mesh."""
+        s = self.searcher
+        live = self._live(gi)
+        bodies = [self._shard_body(gi, j, kk, q, kern) for j in live]
+
+        def body(bufs):
+            outs = [None] * len(self._packs[gi])
+            for i, (j, b) in enumerate(zip(live, bodies)):
+                outs[j] = b(None if bufs is None else (bufs[i],))
+            return s._join(outs, q, kk) if s.joined else outs[0]
+
+        return body
+
     def run(self, k: int, plain: bool = False, fused: bool = True):
         """Per-query (scores f32 [k'], global docs i32 [k']) tensors on the
         mesh's first device, k' = min(k, nd_pad, the group's lanes); -inf
-        scores are non-matches. ``fused=True`` (default) replays one CUDA
-        graph per signature group and shard, captured the first time a
-        group of its structure runs on this searcher, every shard's issued
-        before the candidates are gathered; ``fused=False`` runs every
-        (group, segment) runner eagerly (the debug path); ``plain=True``
-        runs the kernels' plain versions eagerly."""
+        scores are non-matches. ``fused=True`` (default) replays, per
+        signature group, captured the first time a group of its structure
+        runs on this searcher: on an NCCL mesh one graph of the whole group
+        body (``_group_body``: the runners, the all_gather and the re-rank),
+        with no call into ``torch.distributed``; else one graph per shard,
+        every shard's issued before the candidates are joined.
+        ``fused=False`` runs the group bodies eagerly (the debug path);
+        ``plain=True`` runs them on the kernels' plain versions. Every
+        group runs in every process, in the same order, whatever its
+        shards hold."""
         if self._kmax is not None and k > self._kmax:
             raise ValueError(
                 f"prepared for top-k <= {self._kmax} (scored-only multiterm"
@@ -901,27 +1003,32 @@ class PreparedShardedBatch:
         s = self.searcher
         kern = PLAIN if plain else KERNELS
         # every group's work on every shard is issued first, so that no
-        # card waits for another's group before its next one
+        # card waits for another's group before its next one; a gloo
+        # mesh's joins follow
         issued = []
         for gi, (qis, _mode, _wand, cap) in enumerate(self.groups):
             kk = min(k, s.nd_pad, cap)
-            packs = self._packs[gi]
-            live = [j for j, p in enumerate(packs) if p is not None]
-            outs = [None] * len(packs)
-            if plain or not fused or not live:
-                for j in live:
-                    outs[j] = self._shard_body(gi, j, kk, len(qis), kern)(None)
-            else:
-                got = _run_fused_group(
-                    "sharded", self.fused_key(gi, kk),
-                    [((packs[j][1],), self._shard_body(gi, j, kk, len(qis))) for j in live],
-                )
-                for j, o in zip(live, got):
+            q = len(qis)
+            live = self._live(gi)
+            outs = [None] * len(self._packs[gi])
+            got = None  # None: the shards' ``outs`` are joined below
+            if plain or not fused:
+                got = self._group_body(gi, kk, q, kern)(None)
+            elif s.mesh.join_in_graph:
+                (got,) = _run_fused_group("sharded", self.fused_key(gi, kk), [(
+                    s.device, tuple(self._packs[gi][j][1] for j in live),
+                    self._group_body(gi, kk, q))])
+            elif live:
+                parts = [(s.shards[j][1], (self._packs[gi][j][1],), self._shard_body(gi, j, kk, q))
+                         for j in live]
+                for j, o in zip(live, _run_fused_group("sharded", self.fused_key(gi, kk), parts)):
                     outs[j] = o
-            issued.append((qis, kk, outs))
+            issued.append((qis, kk, outs, got))
         out = [None] * self.num_queries
-        for qis, kk, outs in issued:
-            vals, docs = outs[0] if s.D == 1 else s._join(outs, len(qis), kk)
+        for qis, kk, outs, got in issued:
+            if got is None:
+                got = s._join(outs, len(qis), kk) if s.joined else outs[0]
+            vals, docs = got
             for j, qi in enumerate(qis):
                 out[qi] = (vals[j], docs[j])
         return out

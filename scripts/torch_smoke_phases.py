@@ -3,7 +3,8 @@ query's breadth categories and tiers, fused and eager; 9 phrases; 12 the
 sharded executor over the three-segment index, fused and eager; 14 the
 CLI, 15 embedding training, 16 the multi-process dryrun, 17 the mesh of
 devices over the three-segment index, 18 the benchmark entry points over
-the first segment), and two
+the first segment, 19 the NCCL mesh over the three-segment index after
+phase 17, and over every visible card one process per card), and two
 measurements behind their design:
 
 * ``--gloo``: whether a ``gloo`` group's ``all_gather`` takes CUDA tensors
@@ -214,10 +215,11 @@ def eager_turns(torch, srs, dev, smi, turns=2):
 
 
 def run_query_phase(torch, cs, step, index, dev, smi, profile=None):
-    """Phase 8, 9, 12, 17 or 18 of ``chip_smoke.py`` on the segments
+    """Phase 8, 9, 12, 17, 18 or 19 of ``chip_smoke.py`` on the segments
     ``index(n)`` gives (phases 12 and 17 with ``chip_smoke.py``'s profiler
-    breakdown, fused and eager, when ``profile`` names a file; phase 17
-    held against a one-shard pass of its own, not phase 12's)."""
+    breakdown, fused and eager, when ``profile`` names a file; phases 17
+    and 19 held against a one-shard pass of their own, not phase 12's;
+    phase 19 runs after phase 17, whose result and launches it takes)."""
     from iresearch_tpu_torch import bench_mix
     from iresearch_tpu_torch.exec.batch import QueryBatch
     from iresearch_tpu_torch.kernels import build as kb
@@ -254,13 +256,22 @@ def run_query_phase(torch, cs, step, index, dev, smi, profile=None):
             out = ShardedSearcher(srs, device=dev).prepare_many(
                 filters, scorer, wand=True, k_max=k).run(k)
             one = tuple(torch.stack(x).cpu().numpy() for x in zip(*out))
-            print(cs.run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one, profile))
+            launches, mesh_pass, mesh_out = cs.run_mesh(torch, srs, tasks, scorer, k, smi, kind,
+                                                        merged, one, profile)
+            print(launches)
+            if step == "19":
+                cache = os.path.join(REPO, ".bench_cache")
+                paths = [bench_mix.segment_path(sr.num_docs, cache, si)
+                         for si, sr in enumerate(srs)]
+                print(cs.run_nccl(torch, srs, paths, tasks, scorer, k, smi, kind, mesh_pass,
+                                  mesh_out, one))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phases", nargs="*",
-                    choices=["8", "9", "12", "14", "15", "16", "17", "18", "bits", "eager"])
+                    choices=["8", "9", "12", "14", "15", "16", "17", "18", "19", "bits",
+                             "eager"])
     ap.add_argument("--docs", type=int, default=5_000_000)
     ap.add_argument("--profile", metavar="FILE",
                     help="phases 12, 17: also profile a fused and an eager pass; tables to FILE.*")
@@ -313,7 +324,7 @@ def main() -> int:
                     gloo_check()
                 elif step == "gather":
                     gather_forms(torch, cs)
-                elif step in ("8", "9", "12", "17", "18", "bits", "eager"):
+                elif step in ("8", "9", "12", "17", "18", "19", "bits", "eager"):
                     run_query_phase(torch, cs, step, index, dev, smi, args.profile)
                 elif step == "14":
                     print(cs.run_cli(torch, 1_250_000, dev, smi, tmp))

@@ -1155,3 +1155,77 @@ def test_mesh_of_two_cards_equals_one_shard(second_card, card_segments):
     against ``device=cuda:0``."""
     mesh = _mesh_agrees(card_segments, [torch.device("cuda", 0), second_card])
     assert [segs for _g, _d, segs in mesh.shards] == [[0, 1], [2]]
+
+
+@pytest.fixture
+def nccl_group(cuda_device):
+    """An NCCL group of this one process on cuda:0 (its communicator made
+    at once), destroyed after the test with every graph freed first."""
+    import socket
+
+    import torch.distributed as dist
+
+    from iresearch_tpu_torch.exec import batch as B
+
+    if not dist.is_nccl_available():
+        pytest.skip("this torch has no NCCL")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=cuda_device)
+    try:
+        yield dist.group.WORLD
+    finally:
+        B.clear_fused_cache()
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_group_of_one_captures_the_join(nccl_group, cuda_device, card_segments,
+                                             monkeypatch):
+    """Four shards on cuda:0 in an NCCL group of one process: each
+    signature group is one graph on cuda:0 holding every shard's runners,
+    the ``all_gather`` and the re-rank, captured under the sync debug mode
+    set to raise; the replays make no call into ``torch.distributed`` and
+    capture nothing; the fused, eager and plain runs equal each other and
+    the same four shards with no group (the join on the host), docs
+    exact, scores rtol 1e-5; K3's scored form launches inside the graphs."""
+    from iresearch_tpu_torch import bench_mix
+    from iresearch_tpu_torch.exec import batch as B
+    from iresearch_tpu_torch.parallel import ShardedSearcher
+    from iresearch_tpu_torch.parallel.multihost import dist_calls
+    from iresearch_tpu_torch.search import filters as PF
+
+    B.clear_fused_cache()
+    term_at = bench_mix._ranked(card_segments[0])[0]
+    filters = [f for _c, f in bench_mix.task_mix(card_segments[0])[::8]] + [
+        PF.ByPhrase("body", [term_at(20), term_at(21)])]
+    ss = ShardedSearcher(card_segments, group=nccl_group, devices=[cuda_device] * 4)
+    assert ss.mesh.join_in_graph and (ss.mesh.world, ss.D, ss.joined) == (1, 4, True)
+    assert [segs for _g, _d, segs in ss.shards] == [[0], [1], [2], []]
+    want = ShardedSearcher(card_segments, devices=[cuda_device] * 4).prepare_many(
+        filters, to_port(BM25()), wand=True, k_max=10).run(10)
+    prep = ss.prepare_many(filters, to_port(BM25()), wand=True, k_max=10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = prep.run(10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    entries = [B._FUSED_KINDS["sharded"][prep.fused_key(gi, min(10, ss.nd_pad, g[3]))]
+               for gi, g in enumerate(prep.groups)]
+    assert all(len(e.passes) == 1 and e.passes[0].graph is not None
+               and e.passes[0].device == cuda_device for e in entries)
+    assert sum(e.passes[0].launches.get("decode_score_rows", 0) for e in entries) > 0
+    captures = []
+    real = B._FusedPass.capture
+    monkeypatch.setattr(B._FusedPass, "capture",
+                        lambda self, body: captures.append(self) or real(self, body))
+    with dist_calls() as calls:
+        again = prep.run(10)
+        torch.cuda.synchronize()
+    assert not calls and not captures and all(e.hits == 1 for e in entries)
+    for other in (again, prep.run(10, fused=False), prep.run(10, plain=True), want):
+        for g, w in zip(got, other):
+            _agree(g, w)

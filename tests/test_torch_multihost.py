@@ -83,3 +83,64 @@ def test_dryrun_multihost_on_one_card():
     outs = dryrun_multihost(num_processes=2, devices_per_proc=2, device="cuda:0")
     _check(outs, 2, 2)
     assert all("device=cuda:0" in out for out in outs)
+
+
+def test_nccl_workers_need_a_card_each():
+    """``mesh_devices`` on ``nccl`` gives a process its own card K times
+    and refuses what would put two processes on one card or a process on
+    the CPU, whatever cards the host has."""
+    from iresearch_tpu_torch.parallel.multihost import mesh_devices
+
+    assert mesh_devices(0, 1, 3, "cuda:0", backend="nccl") == [torch.device("cuda", 0)] * 3
+    for device in ("cuda:0", "cpu"):
+        with pytest.raises(ValueError, match="card of its own"):
+            mesh_devices(0, 2, 2, device, backend="nccl")
+    with pytest.raises(ValueError, match="card of its own"):
+        mesh_devices(0, 1, 2, "cpu", backend="nccl")
+    if torch.cuda.device_count() < 3:
+        with pytest.raises(ValueError, match="needs 3 cards"):
+            mesh_devices(0, 3, 1, backend="nccl")
+
+
+def test_dist_calls_counts_the_calls():
+    """``dist_calls`` counts calls through ``torch.distributed`` by name
+    inside its block only, and puts every function back."""
+    import torch.distributed as dist
+
+    from iresearch_tpu_torch.parallel.multihost import dist_calls
+
+    before = dist.is_initialized
+    with dist_calls() as calls:
+        dist.is_initialized()
+        dist.is_initialized()
+        dist.is_available()
+    dist.is_initialized()
+    assert calls == {"is_initialized": 2, "is_available": 1}
+    assert dist.is_initialized is before
+
+
+@pytest.mark.cuda
+def test_dryrun_multihost_nccl_refuses_a_shared_card():
+    """Two NCCL processes asked onto one card fail with the reason."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    with pytest.raises(RuntimeError, match="card of its own"):
+        dryrun_multihost(num_processes=2, devices_per_proc=2, device="cuda:0",
+                         backend="nccl", timeout=300)
+
+
+@pytest.mark.cuda
+def test_dryrun_multihost_nccl_two_cards():
+    """Two processes of an NCCL group, one card each with two shards on
+    it, against the JAX package's 2 x 2: each group one graph per process
+    holding the all_gather, the replays without a call into
+    ``torch.distributed``."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards ({torch.cuda.device_count()} visible)")
+    outs = dryrun_multihost(num_processes=2, devices_per_proc=2, backend="nccl")
+    _check(outs, 2, 2)
+    for pid, out in enumerate(outs):
+        assert f"device=cuda:{pid}" in out
+        join = re.search(rf"^MULTIHOST_JOIN process={pid} .*$", out, re.M).group(0)
+        assert " backend=nccl join=graph " in join and " graphs_per_group=1 " in join
+        assert " dist_calls=0 " in join

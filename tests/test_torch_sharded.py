@@ -646,3 +646,140 @@ def test_two_processes_gloo_match_jax(segs, tmp_path):
     want = js.prepare_many(filters, BM25(), wand=True).run(10)
     for (gv, gd), (wv, wd) in zip(got, want):
         assert_topk_near((gv, gd), (np.asarray(wv), np.asarray(wd)))
+
+
+# --- the join inside the group body: every rank runs every group -------------
+
+_GROUP_RANK = r"""
+import pickle, sys
+import torch.distributed as dist
+from iresearch_tpu_torch.exec import batch as B
+from iresearch_tpu_torch.index.segment import carry_segment
+from iresearch_tpu_torch.parallel import ShardedSearcher
+from iresearch_tpu_torch.parallel.multihost import dist_calls
+from iresearch_tpu_torch.parallel.sharded import Mesh
+
+rank, port, src, dst = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+cases, filters, scorer = pickle.load(open(src, "rb"))
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2)
+out = {}
+for name, (blobs, ndev) in cases.items():
+    s = ShardedSearcher([carry_segment(n, b, m) for n, b, m in blobs], devices=["cpu"] * ndev)
+    m = s.mesh
+    # the NCCL mesh's group body, its join inside, run over gloo on the CPU
+    s.mesh = Mesh(m.group, m.rank, m.world, m.devices, join_in_graph=True)
+    prep = s.prepare_many(filters, scorer, wand=True)
+    with dist_calls() as calls:
+        runs = [prep.run(10), prep.run(10), prep.run(10, fused=False), prep.run(10, plain=True)]
+    entries = len(B._FUSED_KINDS["sharded"])
+    B._WARM_UP.on = True  # as in a capture's warm-up: no collective
+    try:
+        with dist_calls() as warm:
+            prep.run(10, fused=False)
+    finally:
+        B._WARM_UP.on = False
+    B.clear_fused_cache()
+    out[name] = (s.local, len(prep.groups), dict(calls), dict(warm), entries,
+                 [[(v.numpy(), d.numpy()) for v, d in r] for r in runs])
+pickle.dump(out, open(f"{dst}.{rank}", "wb"))
+dist.destroy_process_group()
+"""
+# per case: (the first segments of the module's reader, shards per
+# process (two processes, so D = 2 x shards), the JAX mesh's devices: its
+# padded S takes 7 segments on 4 devices, but not 2, so the case whose
+# second process holds no segment is held against 2)
+GROUP_CASES = {"d2": (6, 1, 2), "d4": (7, 2, 4), "empty_rank": (2, 2, 2)}
+
+
+@pytest.fixture(scope="module")
+def group_runs(segs, tmp_path_factory):
+    """Every ``GROUP_CASES`` case in two processes of one ``gloo`` group
+    on the CPU, each searcher's mesh marked as joining inside the group
+    body (what an NCCL mesh captures per group): per rank and case its
+    local segments, groups, calls into ``torch.distributed``, "sharded"
+    entries, and its fused, fused again, eager and plain results."""
+    from iresearch_tpu.formats.segment_io import write_segment
+
+    tmp = tmp_path_factory.mktemp("group")
+    src, dst = tmp / "in.pkl", tmp / "out.pkl"
+    cases = {name: ([(sr.name, write_segment(sr.data), np.flatnonzero(~sr.alive))
+                     for sr in segs.jax[:n]], ndev)
+             for name, (n, ndev, _jd) in GROUP_CASES.items()}
+    with open(src, "wb") as f:
+        pickle.dump((cases, [to_port(x) for x in MESH_WAND["segs"]], to_port(BM25())), f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=REPO + (os.pathsep + path if path else ""))
+    procs = [subprocess.Popen([sys.executable, "-c", _GROUP_RANK, str(r), str(port), str(src),
+                               str(dst)],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), [e.decode()[-2000:] for e in errs]
+    runs = []
+    for r in range(2):
+        with open(f"{dst}.{r}", "rb") as f:
+            runs.append(pickle.load(f))
+    return runs
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_group_body_join_over_gloo_matches_jax(segs, group_runs, case):
+    """The group body with the join inside it, run by both processes of a
+    ``gloo`` group on the CPU (fused, where the CPU runs the entry's body
+    eagerly; again; eager; plain): one ``all_gather`` per group per run in
+    every process, a process without segments (``empty_rank``) included,
+    so no rank waits on another, and none inside a capture's warm-up
+    (where a miss would otherwise issue one more than a hit); every run of both ranks the same, and the
+    same as the JAX package's searcher on 2 or 4 virtual devices (the
+    exactness gate) over ``MESH_WAND``'s queries, which its padded ``S``
+    takes."""
+    import jax
+
+    from iresearch_tpu.parallel import ShardedSearcher as JaxSearcher
+    from iresearch_tpu.parallel import make_mesh as jax_mesh
+
+    n, ndev, jd = GROUP_CASES[case]
+    per_shard = -(-n // (2 * ndev))
+    js = JaxSearcher(segs.jax[:n], jax_mesh(jax.devices()[:jd]))
+    want = _jax_run(js, MESH_WAND["segs"], BM25(), True, 10)[1]
+    ranks = [r[case] for r in group_runs]
+    for rank, (local, groups, calls, warm, entries, runs) in enumerate(ranks):
+        assert local == [si for si in range(n) if si // (per_shard * ndev) == rank]
+        assert calls == {"all_gather_into_tensor": 4 * groups} and 0 < entries <= groups
+        assert warm == {}
+        for run in runs:
+            for (gv, gd), (wv, wd) in zip(run, runs[0]):
+                np.testing.assert_array_equal(gd, wd)
+                np.testing.assert_array_equal(gv, wv)
+        for (gv, gd), (wv, wd), (ov, od) in zip(runs[0], want, ranks[0][5][0]):
+            assert_topk_near((gv, gd), (np.asarray(wv), np.asarray(wd)))
+            np.testing.assert_array_equal(gd, od)
+            np.testing.assert_array_equal(gv, ov)
+    assert (ranks[1][0] == []) == (case == "empty_rank")
+
+
+@pytest.mark.parametrize("devices", [["cpu"], ["cpu", "cpu"], ["cuda:0", "cuda:1"]],
+                         ids=["cpu", "cpu2", "two-cards"])
+def test_nccl_mesh_refuses_devices_not_one_card(monkeypatch, devices):
+    """``make_mesh`` on a group that says it is NCCL's (the backend
+    monkeypatched: this torch has no NCCL) raises unless the devices are
+    one card; it does not fall back to another backend."""
+    import torch.distributed as dist
+
+    group = object()
+    monkeypatch.setattr(dist, "get_backend", lambda g=None: "nccl")
+    monkeypatch.setattr(dist, "get_rank", lambda g=None: 0)
+    monkeypatch.setattr(dist, "get_world_size", lambda g=None: 1)
+    with pytest.raises(ValueError, match="one card of its own"):
+        make_mesh(devices, group)
+    monkeypatch.setattr(dist, "get_backend", lambda g=None: "gloo")
+    mesh = make_mesh(devices, group)
+    assert mesh == (group, 0, 1, tuple(torch.device(d) for d in devices))
+    assert not mesh.join_in_graph
