@@ -2188,7 +2188,7 @@ def run_nccl_workers(torch, paths, want, smi):
     group (``parallel/multihost.py:serve_multihost``), each opening the
     segment files ``paths`` and holding its shard on its card, serving the
     mix (the first pass captures, the second replays with no call into
-    ``torch.distributed``; ``MESH_PASSES`` passes each way, the busy share
+    ``torch.distributed``; ``SERVE_PASSES`` passes each way, the busy share
     of its card under the profiler). Every rank's result against the
     one-card result ``want`` (docs equal, scores rtol 1e-5). Returns the
     workers' launches of their replayed pass, summed."""
@@ -2200,7 +2200,7 @@ def run_nccl_workers(torch, paths, want, smi):
     n = torch.cuda.device_count()
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="nccl_", dir=os.path.dirname(paths[0])) as out:
-        outs, results = serve_multihost(paths, n, out, devices_per_proc=1, passes=MESH_PASSES)
+        outs, results = serve_multihost(paths, n, out)
     total = Counter()
     for pid, (log, got) in enumerate(zip(outs, results)):
         join = re.search(rf"^MULTIHOST_JOIN process={pid} .*$", log, re.M)

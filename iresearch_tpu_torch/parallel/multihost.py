@@ -34,7 +34,7 @@ Run a worker:
     python -m iresearch_tpu_torch.parallel.multihost --process-id I \
         --num-processes N --coordinator localhost:PORT \
         --devices-per-proc K [--device cpu] [--backend gloo|nccl] \
-        [--segments A.bin,B.bin,... --out DIR --passes P]
+        [--segments A.bin,B.bin,... --out DIR]
 
 or drive the whole group via ``dryrun_multihost()``
 (``tests/test_torch_multihost.py``, ``chip_smoke.py`` phase 16) or
@@ -55,6 +55,7 @@ import types
 from collections import Counter
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SERVE_PASSES = 1  # timed passes each way and turn of ``_serve_index``
 
 
 def _build_reader(num_docs: int, segments: int):
@@ -189,7 +190,6 @@ def run_worker(
     backend: str = "gloo",
     segments=None,
     out=None,
-    passes: int = 2,
 ) -> None:
     """One process of the group.
 
@@ -216,7 +216,7 @@ def run_worker(
     )
     try:
         if segments:
-            _serve_index(process_id, num_processes, devices, segments, out, passes)
+            _serve_index(process_id, num_processes, devices, segments, out)
         else:
             _dryrun(process_id, num_processes, devices_per_proc, devices)
         loaded = sorted(
@@ -302,14 +302,14 @@ def _dryrun(process_id, num_processes, devices_per_proc, devices) -> None:
           f"mesh={','.join(map(str, devices))}", flush=True)
 
 
-def _serve_index(process_id, num_processes, devices, paths, out, passes) -> None:
+def _serve_index(process_id, num_processes, devices, paths, out) -> None:
     """The bench mix (``bench_mix.task_mix`` of the first segment) over the
     segment files ``paths``, sharded over this process's ``devices`` in the
     group: the first pass (the captures) and a second under
     ``dist_calls`` (on an NCCL mesh replays with no call into
-    ``torch.distributed``), equal; then ``passes`` synchronised passes
-    each way in turns (fused, eager, eager, fused), the device's busy share
-    of ``passes`` fused passes (torch.profiler; also without NCCL's
+    ``torch.distributed``), equal; then ``SERVE_PASSES`` synchronised
+    passes each way in turns (fused, eager, eager, fused), the device's
+    busy share of ``SERVE_PASSES`` fused passes (torch.profiler; also without NCCL's
     kernels, which wait for the other ranks), and the result, written to
     ``out/result{process_id}.npy`` as [2, Q, k] int32 (the scores' bits,
     the docs)."""
@@ -342,6 +342,7 @@ def _serve_index(process_id, num_processes, devices, paths, out, passes) -> None
         for d in {d for d in devices if d.type == "cuda"}:
             torch.cuda.synchronize(d)
 
+    passes = SERVE_PASSES
     t1 = time.perf_counter()
     first = packed(prep.run(k))
     first_s = time.perf_counter() - t1
@@ -473,16 +474,16 @@ def dryrun_multihost(
     return outs
 
 
-def serve_multihost(paths, num_processes: int, out: str, devices_per_proc: int = 1,
-                    backend: str = "nccl", passes: int = 2, timeout: int = 900):
-    """Spawn the worker group over the segment files ``paths`` (each
-    worker opens every file; its own shards' segments go onto its card),
-    each serving the bench mix (``_serve_index``); returns (each worker's
-    output, each worker's result [2, Q, k] int32 read from ``out``)."""
+def serve_multihost(paths, num_processes: int, out: str, timeout: int = 900):
+    """Spawn an NCCL group of ``num_processes`` workers, one per card with
+    one shard there, over the segment files ``paths`` (each worker opens
+    every file; its shard's segments go onto its card), each serving the
+    bench mix (``_serve_index``); returns (each worker's output, each
+    worker's result [2, Q, k] int32 read from ``out``)."""
     import numpy as np
 
-    args = ["--devices-per-proc", str(devices_per_proc), "--backend", backend,
-            "--segments", ",".join(paths), "--out", out, "--passes", str(passes)]
+    args = ["--devices-per-proc", "1", "--backend", "nccl",
+            "--segments", ",".join(paths), "--out", out]
     outs = _spawn(num_processes, args, timeout)
     return outs, [np.load(os.path.join(out, f"result{pid}.npy")) for pid in range(num_processes)]
 
@@ -503,12 +504,11 @@ def _main() -> None:
     ap.add_argument("--segments", default=None,
                     help="comma-separated segment files to serve the bench mix over")
     ap.add_argument("--out", default=None, help="directory of the --segments run's results")
-    ap.add_argument("--passes", type=int, default=2, help="timed passes each way (--segments)")
     a = ap.parse_args()
     run_worker(
         a.process_id, a.num_processes, a.coordinator, a.devices_per_proc,
         device=a.device, backend=a.backend,
-        segments=a.segments.split(",") if a.segments else None, out=a.out, passes=a.passes,
+        segments=a.segments.split(",") if a.segments else None, out=a.out,
     )
 
 

@@ -53,7 +53,7 @@ backend (``Mesh.join_in_graph``):
 
 A group's graphs are one entry of ``exec/batch.py``'s "sharded" LRU, so a
 fresh ``prepare_many`` of the same structure on the same searcher replays
-them; ``run(fused=False)`` runs the group body eagerly (the debug path).
+them; ``run(fused=False)`` runs the same bodies eagerly (the debug path).
 """
 
 from __future__ import annotations
@@ -249,9 +249,10 @@ class ShardedSearcher:
         self.mesh = make_mesh([device] if device is not None else devices, group)
         self.device = self.mesh.devices[0]
         self.D = self.mesh.size
-        # the shards' candidates meet in ``_join`` (several shards, or a
-        # group's collective); else the one shard re-ranks its own
-        self.joined = self.D > 1 or self.mesh.group is not None
+        # the shards' candidates meet in ``_join`` (several shards, or an
+        # NCCL group's collective, whatever its size); else the one shard
+        # re-ranks its own
+        self.joined = self.D > 1 or self.mesh.join_in_graph
         S = max(1, math.ceil(len(self.segments) / self.D) * self.D)
         self.S = S
         self.per_shard = S // self.D
@@ -839,7 +840,7 @@ class ShardedSearcher:
         docs = torch.cat([
             torch.zeros((q, w), dtype=torch.int32, device=dev) if o is None
             else o[1].to(dev, non_blocking=True) for o in outs], dim=1)
-        if self.mesh.group is not None:
+        if self.mesh.world > 1 or self.mesh.join_in_graph:
             vals, docs = _all_gather(vals, docs, self.mesh)
         return list(topk_docs(vals, docs, kk))
 
@@ -968,8 +969,8 @@ class PreparedShardedBatch:
         top-``kk``: every local shard's body (``bufs``: one buffer per shard
         with segments, in shard order; None: the batch's own), then the
         join (``ShardedSearcher._join``), or with nothing to join the one
-        shard's re-ranked candidates. What an NCCL mesh captures per group;
-        the eager run of every mesh."""
+        shard's re-ranked candidates. What an NCCL mesh captures per group
+        and runs eagerly."""
         s = self.searcher
         live = self._live(gi)
         bodies = [self._shard_body(gi, j, kk, q, kern) for j in live]
@@ -991,7 +992,8 @@ class PreparedShardedBatch:
         body (``_group_body``: the runners, the all_gather and the re-rank),
         with no call into ``torch.distributed``; else one graph per shard,
         every shard's issued before the candidates are joined.
-        ``fused=False`` runs the group bodies eagerly (the debug path);
+        ``fused=False`` runs the same bodies eagerly (the debug path), on a
+        gloo mesh every group's shard work issued before the joins;
         ``plain=True`` runs them on the kernels' plain versions. Every
         group runs in every process, in the same order, whatever its
         shards hold."""
@@ -1012,12 +1014,15 @@ class PreparedShardedBatch:
             live = self._live(gi)
             outs = [None] * len(self._packs[gi])
             got = None  # None: the shards' ``outs`` are joined below
-            if plain or not fused:
+            if s.mesh.join_in_graph and (plain or not fused):
                 got = self._group_body(gi, kk, q, kern)(None)
             elif s.mesh.join_in_graph:
                 (got,) = _run_fused_group("sharded", self.fused_key(gi, kk), [(
                     s.device, tuple(self._packs[gi][j][1] for j in live),
                     self._group_body(gi, kk, q))])
+            elif plain or not fused:
+                for j in live:
+                    outs[j] = self._shard_body(gi, j, kk, q, kern)(None)
             elif live:
                 parts = [(s.shards[j][1], (self._packs[gi][j][1],), self._shard_body(gi, j, kk, q))
                          for j in live]
