@@ -70,6 +70,7 @@ from iresearch_tpu_torch.ops.dense_scan import score_rows
 from iresearch_tpu_torch.ops.topk import _IMAX32, topk_docs
 from iresearch_tpu_torch.search import filters as F
 from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32
+from iresearch_tpu_torch.utils.timer import note, span
 
 # live lanes per batched call: a group materializes Q x width lanes of
 # intermediates, so a runner takes at most budget // width queries at a
@@ -724,6 +725,12 @@ _FUSED_KINDS: "Dict[str, OrderedDict]" = {
 _FUSED_CACHE: "OrderedDict[tuple, _FusedPass]" = _FUSED_KINDS["batch"]
 _FUSED_CACHE_MAX = int(os.environ.get("IRS_FUSED_CACHE_MAX", "256"))
 _FUSED_LOCK = threading.Lock()
+# per kind, since the process started (``fused_cache_stats``); under
+# ``_FUSED_LOCK``
+_FUSED_STATS: Dict[str, Dict[str, float]] = {
+    kind: dict(hits=0, misses=0, evictions=0, captures=0, capture_s=0.0, nodes=0)
+    for kind in _FUSED_KINDS
+}
 # one memory pool per card shared by every cached graph: replays run one
 # at a time on the caller's stream and each one's outputs are copied out
 # before the next, so one graph's intermediates may lie where another's
@@ -745,6 +752,15 @@ def warming_up() -> bool:
     its entry was a miss (warm-up, capture, replay) or a hit (replay),
     which ranks need not share."""
     return getattr(_WARM_UP, "on", False)
+
+
+def fused_cache_stats() -> Dict[str, Dict[str, float]]:
+    """Per kind of ``_FUSED_KINDS``: its lookups that hit and missed, the
+    entries evicted past ``_FUSED_CACHE_MAX``, and the CUDA graphs its
+    misses captured, their capture seconds and graph nodes; counts since
+    the process started (``clear_fused_cache`` keeps them)."""
+    with _FUSED_LOCK:
+        return {kind: dict(st) for kind, st in _FUSED_STATS.items()}
 
 
 def clear_fused_cache() -> None:
@@ -869,27 +885,43 @@ class _FusedGroup:
 
 def _new_pass(device, bufs, body, kept):
     """A new entry for ``body`` over buffers like ``bufs`` on ``device``:
-    on the card its graph captured."""
-    entry = _FusedPass(device, bufs, kept)
-    if device.type == "cuda":
-        entry.capture(body)
-    return entry
+    on the card its graph captured (span ``fused.capture``, the warm-up
+    included)."""
+    with span("fused.capture"):
+        entry = _FusedPass(device, bufs, kept)
+        if device.type == "cuda":
+            entry.capture(body)
+            note(nodes=entry.nodes, launches=dict(entry.launches))
+        return entry
 
 
 def _cached(kind: str, key, make):
     """(entry, hit): the entry of ``key`` in the LRU of ``kind``, made by
     ``make()`` on a miss (its oldest entries evicted past
     ``_FUSED_CACHE_MAX``), moved to the newest and its hit counted on a
-    hit. Under ``_FUSED_LOCK``."""
-    cache = _FUSED_KINDS[kind]
+    hit; counted in ``_FUSED_STATS`` and noted on the open span (``hit``,
+    ``evicted``). Under ``_FUSED_LOCK``."""
+    cache, st = _FUSED_KINDS[kind], _FUSED_STATS[kind]
     entry = cache.get(key)
     if entry is None:
         entry = cache[key] = make()
+        evicted = 0
         while len(cache) > _FUSED_CACHE_MAX:
             cache.popitem(last=False)
+            evicted += 1
+        st["misses"] += 1
+        st["evictions"] += evicted
+        for p in entry.passes if isinstance(entry, _FusedGroup) else (entry,):
+            if p.graph is not None:
+                st["captures"] += 1
+                st["capture_s"] += p.capture_s
+                st["nodes"] += p.nodes
+        note(hit=False, evicted=evicted)
         return entry, False
     cache.move_to_end(key)
     entry.hits += 1
+    st["hits"] += 1
+    note(hit=True, evicted=0)
     return entry, True
 
 
@@ -897,12 +929,16 @@ def _run_fused(kind: str, key, bufs, body, kept=()):
     """The flat outputs of ``body`` (the pass over buffers like ``bufs``)
     through the entry of ``key`` in the LRU of ``kind`` ("batch" or
     "single"): on a miss a new entry (on the card its graph captured), on
-    a hit ``bufs`` copied into the entry's own."""
-    with _FUSED_LOCK:
+    a hit ``bufs`` copied into the entry's own. Span ``fused.run``, its
+    children ``fused.capture`` (a miss), ``fused.load`` (a hit) and
+    ``fused.replay``."""
+    with span("fused.run", kind=kind), _FUSED_LOCK:
         entry, hit = _cached(kind, key, lambda: _new_pass(bufs[0].device, bufs, body, kept))
         if hit:
-            entry.load(bufs)
-        return entry.run(body)
+            with span("fused.load"):
+                entry.load(bufs)
+        with span("fused.replay"):
+            return entry.run(body)
 
 
 def _run_fused_group(kind: str, key, parts, kept=()):
@@ -912,14 +948,16 @@ def _run_fused_group(kind: str, key, parts, kept=()):
     of ``kind`` ("sharded"): on a miss every part captured on its card, on
     a hit each part's buffers copied into its pass's own. The parts'
     replays are issued back to back with no wait for a device between
-    them, so that distinct cards run at once."""
-    with _FUSED_LOCK:
+    them, so that distinct cards run at once. Spans as ``_run_fused``'s."""
+    with span("fused.run", kind=kind), _FUSED_LOCK:
         entry, hit = _cached(kind, key, lambda: _FusedGroup(
             _new_pass(dev, bufs, body, kept) for dev, bufs, body in parts))
         if hit:
-            for p, (_dev, bufs, _body) in zip(entry.passes, parts):
-                p.load(bufs)
-        return [p.run(body) for p, (_dev, _bufs, body) in zip(entry.passes, parts)]
+            with span("fused.load"):
+                for p, (_dev, bufs, _body) in zip(entry.passes, parts):
+                    p.load(bufs)
+        with span("fused.replay"):
+            return [p.run(body) for p, (_dev, _bufs, body) in zip(entry.passes, parts)]
 
 
 class _Rows(NamedTuple):
@@ -979,9 +1017,10 @@ class SingleCall:
 
     def run_fused(self):
         """(vals [1, k'], docs [1, k']) as fresh tensors, through the
-        call's fused entry."""
-        key, bufs, body = self.fused_entry()
-        return tuple(_run_fused("single", key, bufs, body))
+        call's fused entry (span ``batch.run``)."""
+        with span("batch.run"):
+            key, bufs, body = self.fused_entry()
+            return tuple(_run_fused("single", key, bufs, body))
 
 
 class QueryBatch:
@@ -1013,18 +1052,18 @@ class QueryBatch:
         self.wand_sample = wand_sample
         self.wand_mode = wand_mode
         self.device = entry_device(device)
-        self.queries = [
-            DeviceQuery(
-                f, self.segments, self.scorer, wand=wand, wand_mode=wand_mode,
-                device_phrase=False, device=self.device,
-            )
-            for f in filters
-        ]
+        with span("batch.init"):
+            self.queries = [
+                DeviceQuery(
+                    f, self.segments, self.scorer, wand=wand, wand_mode=wand_mode,
+                    device_phrase=False, device=self.device,
+                )
+                for f in filters
+            ]
 
-    def _plans_and_sigs(self, seg_idx: int, k: int):
-        """(plans, sky_specs, sigs): per-query plan + stacking signature
-        (``exec/batch.py:_plans_and_sigs``)."""
-        plans = [q.plan_for_k(seg_idx, k) for q in self.queries]
+    def _sigs(self, plans, seg_idx: int, k: int):
+        """(sky_specs, sigs): per-query skyline spec + stacking signature
+        of ``plans`` (the second half of ``exec/batch.py:_plans_and_sigs``)."""
         sr = self.segments[seg_idx]
         sky_specs = [
             sky_spec(p, sr, self.scorer, min(k, p.nd_pad)) for p in plans
@@ -1054,27 +1093,33 @@ class QueryBatch:
                     else (sp.classes, _bucket4(len(sp.row_ids))),
                 )
             )
-        return plans, sky_specs, sigs
+        return sky_specs, sigs
 
     def prepare(self, seg_idx: int, k: int) -> "PreparedBatch":
-        """Stack the plans into device tensors once; ``run`` re-runs them."""
-        plans, sky_specs, sigs = self._plans_and_sigs(seg_idx, k)
-        groups: Dict[tuple, List[int]] = defaultdict(list)
-        for qi, sig in enumerate(sigs):
-            groups[sig].append(qi)
-        calls = []
-        for sig, qis in groups.items():
-            sky_M = sig[10]
-            tier, fn, args, kwargs = group_call(
-                self.segments[seg_idx], [plans[qi] for qi in qis], k,
-                self.scorer, self.device,
-                sky_specs=[sky_specs[qi] for qi in qis],
-                sky_M=None if sky_M is None else sky_M[1],
-                wand_sample=self.wand_sample, wand_mode=self.wand_mode,
-                single=False,
-            )
-            calls.append((tier, qis, fn, args, kwargs))
-        return PreparedBatch(len(plans), calls, self.device)
+        """Stack the plans into device tensors once; ``run`` re-runs them.
+        Span ``batch.prepare``: a ``query.plan`` a query, then
+        ``batch.stack`` (signatures, ``group_call``), then ``batch.pack``
+        (``PreparedBatch``)."""
+        with span("batch.prepare", seg=seg_idx):
+            plans = [q.plan_for_k(seg_idx, k) for q in self.queries]
+            with span("batch.stack"):
+                sky_specs, sigs = self._sigs(plans, seg_idx, k)
+                groups: Dict[tuple, List[int]] = defaultdict(list)
+                for qi, sig in enumerate(sigs):
+                    groups[sig].append(qi)
+                calls = []
+                for sig, qis in groups.items():
+                    sky_M = sig[10]
+                    tier, fn, args, kwargs = group_call(
+                        self.segments[seg_idx], [plans[qi] for qi in qis], k,
+                        self.scorer, self.device,
+                        sky_specs=[sky_specs[qi] for qi in qis],
+                        sky_M=None if sky_M is None else sky_M[1],
+                        wand_sample=self.wand_sample, wand_mode=self.wand_mode,
+                        single=False,
+                    )
+                    calls.append((tier, qis, fn, args, kwargs))
+            return PreparedBatch(len(plans), calls, self.device)
 
     def prepare_all(self, k: int):
         """The prepared global batch over every segment: ``run()`` replays
@@ -1133,19 +1178,20 @@ class PreparedBatch:
     batch's own buffer."""
 
     def __init__(self, num_queries: int, calls, device) -> None:
-        self.num_queries = num_queries
-        templates, self._buf, self._dev_args = _pack_args(
-            [c[3] for c in calls], entry_device(device)
-        )
-        self._templates = tuple(
-            (fn, tp, kwargs)
-            for (_tier, _qis, fn, _args, kwargs), tp in zip(calls, templates)
-        )
-        self._calls = [
-            (tier, qis, fn, _materialize(tp, self._buf, self._dev_args), kwargs)
-            for (tier, qis, fn, _args, kwargs), tp in zip(calls, templates)
-        ]
-        self._key = _template_key(self._templates, self._dev_args, self._buf)
+        with span("batch.pack"):
+            self.num_queries = num_queries
+            templates, self._buf, self._dev_args = _pack_args(
+                [c[3] for c in calls], entry_device(device)
+            )
+            self._templates = tuple(
+                (fn, tp, kwargs)
+                for (_tier, _qis, fn, _args, kwargs), tp in zip(calls, templates)
+            )
+            self._calls = [
+                (tier, qis, fn, _materialize(tp, self._buf, self._dev_args), kwargs)
+                for (tier, qis, fn, _args, kwargs), tp in zip(calls, templates)
+            ]
+            self._key = _template_key(self._templates, self._dev_args, self._buf)
 
     @property
     def calls(self):
@@ -1176,20 +1222,21 @@ class PreparedBatch:
         ``fused=False`` runs the groups one eager call each (the debug
         path); ``plain=True`` runs the kernels' plain PyTorch versions
         eagerly (the reference the kernel path is checked against on the
-        card)."""
-        if plain or not fused or not self._calls:
-            kern = PLAIN if plain else KERNELS
+        card). Span ``batch.run``."""
+        with span("batch.run"):
+            if plain or not fused or not self._calls:
+                kern = PLAIN if plain else KERNELS
+                return [
+                    (fn(kern, *args, **kwargs), qis)
+                    for _tier, qis, fn, args, kwargs in self._calls
+                ]
+            outs = _run_fused(
+                "batch", self._key, (self._buf,), self._body(KERNELS), _kept(self._dev_args)
+            )
             return [
-                (fn(kern, *args, **kwargs), qis)
-                for _tier, qis, fn, args, kwargs in self._calls
+                ((outs[2 * i], outs[2 * i + 1]), c[1])
+                for i, c in enumerate(self._calls)
             ]
-        outs = _run_fused(
-            "batch", self._key, (self._buf,), self._body(KERNELS), _kept(self._dev_args)
-        )
-        return [
-            ((outs[2 * i], outs[2 * i + 1]), c[1])
-            for i, c in enumerate(self._calls)
-        ]
 
     def run(self, fused: bool = True, plain: bool = False):
         """Per-query (scores [k], local docs [k]) tensors."""

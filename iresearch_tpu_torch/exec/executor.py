@@ -66,6 +66,7 @@ from iresearch_tpu_torch.ops.topk import topk_docs
 from iresearch_tpu_torch.search import filters as F
 from iresearch_tpu_torch.search.host_eval import HostQuery
 from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32, score_block_torch
+from iresearch_tpu_torch.utils.timer import note, span
 
 _NEG_INF = float("-inf")
 
@@ -474,8 +475,9 @@ class DeviceQuery:
         self.wand_mode = wand_mode
         self.device_phrase = device_phrase
         self.device = entry_device(device)
-        self.prepared = HostQuery(flt, list(segments), self.scorer)
-        self.compiler = _plan.PlanCompiler(self.prepared, self.scorer)
+        with span("query.terms"):
+            self.prepared = HostQuery(flt, list(segments), self.scorer)
+            self.compiler = _plan.PlanCompiler(self.prepared, self.scorer)
         self._plans: Dict[int, _plan.SegmentPlan] = {}
         self._full_plans: Dict[int, _plan.SegmentPlan] = {}
 
@@ -495,20 +497,24 @@ class DeviceQuery:
 
     def plan_for_k(self, seg_idx: int, k: int):
         """Plan valid for a top-k of ``k`` (scored-only multiterm plans
-        fall back to the full plan beyond ``scored_only_kmax``)."""
-        p = self.plan(seg_idx)
-        if 0 < p.scored_only_kmax < k:
-            p = self._full_plans.get(seg_idx)
-            if p is None:
-                p = self.compiler.compile(
-                    self.flt,
-                    seg_idx,
-                    wand=self.wand,
-                    device_phrase=self.device_phrase,
-                    scored_only=False,
-                )
-                self._full_plans[seg_idx] = p
-        return p
+        fall back to the full plan beyond ``scored_only_kmax``), under the
+        span ``query.plan`` (``hit`` from the plan cache; a recompile of
+        the full plan is a miss)."""
+        with span("query.plan"):
+            p = self.plan(seg_idx)
+            if 0 < p.scored_only_kmax < k:
+                p = self._full_plans.get(seg_idx)
+                if p is None:
+                    note(hit=False)
+                    p = self.compiler.compile(
+                        self.flt,
+                        seg_idx,
+                        wand=self.wand,
+                        device_phrase=self.device_phrase,
+                        scored_only=False,
+                    )
+                    self._full_plans[seg_idx] = p
+            return p
 
     def single_call(self, seg_idx: int, k: int):
         """This query's top-k on one segment as a ``exec/batch.py:

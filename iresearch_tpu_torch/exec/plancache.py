@@ -20,15 +20,23 @@ Correctness:
   the key includes the full segment-list identity;
 * Proxy filters carry per-object cache semantics and aux plans embed
   [A, nd] host arrays — both are excluded (compile each time).
+
+``plan_cache_stats()`` counts, since the process started, the lookups that
+hit, the compiles (misses: every call that did not hit), the entries
+evicted past ``_CACHE_MAX`` and the compiled plans not stored (uncacheable
+filters, aux plans, plans over ``_ROW_LIMIT`` rows); ``get_plan`` also
+notes ``hit`` on the open span (``utils/timer.py:note``).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from iresearch_tpu_torch.search import filters as F
+from iresearch_tpu_torch.utils.timer import note
 
 _CACHE: "OrderedDict[tuple, object]" = OrderedDict()
 _CACHE_MAX = int(os.environ.get("IRS_PLAN_CACHE_MAX", "8192"))
@@ -37,12 +45,28 @@ _CACHE_MAX = int(os.environ.get("IRS_PLAN_CACHE_MAX", "8192"))
 _ROW_LIMIT = int(os.environ.get("IRS_PLAN_CACHE_ROW_LIMIT", str(1 << 20)))
 
 
+_STATS = {"hits": 0, "misses": 0, "evictions": 0, "not_stored": 0}
+_STATS_LOCK = threading.Lock()
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _STATS_LOCK:
+        _STATS[name] += n
+
+
 def clear_plan_cache() -> None:
     _CACHE.clear()
 
 
 def plan_cache_info() -> Tuple[int, int]:
     return len(_CACHE), _CACHE_MAX
+
+
+def plan_cache_stats() -> Dict[str, int]:
+    """{"hits", "misses", "evictions", "not_stored"}: counts since the
+    process started (a cleared cache keeps them)."""
+    with _STATS_LOCK:
+        return dict(_STATS)
 
 
 def _cacheable_filter(flt) -> bool:
@@ -87,14 +111,26 @@ def get_plan(
             hit = None
         if hit is not None:
             _CACHE.move_to_end(key)
+            _count("hits")
+            note(hit=True)
             return hit
+    _count("misses")
+    note(hit=False)
     plan = compiler.compile(
         flt, seg_idx, wand=wand, device_phrase=device_phrase
     )
+    stored = False
     if key is not None and plan.aux_pairs is None and not plan.device_aux:
         rows = sum(len(g.rows_d) for g in plan.groups)
         if rows <= _ROW_LIMIT:
             _CACHE[key] = plan
+            stored = True
+            evicted = 0
             while len(_CACHE) > _CACHE_MAX:
                 _CACHE.popitem(last=False)
+                evicted += 1
+            if evicted:
+                _count("evictions", evicted)
+    if not stored:
+        _count("not_stored")
     return plan

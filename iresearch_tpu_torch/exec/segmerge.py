@@ -50,6 +50,7 @@ from iresearch_tpu_torch.exec.batch import (
     entry_device,
 )
 from iresearch_tpu_torch.ops.topk import topk_docs
+from iresearch_tpu_torch.utils.timer import span
 
 _NEG_INF = float("-inf")
 
@@ -133,16 +134,17 @@ class MergedBatch:
                 f"global doc ids need {total} < 2^31 (docs are int32); "
                 "split the index across shards instead"
             )
-        self.preps = list(preps)
-        bases = np.zeros(len(preps), np.int32)
-        np.cumsum(np.asarray(num_docs[:-1], np.int64), out=bases[1:])
-        gather, row_base = _flat_index(
-            np.stack([perm_of(p) for p in self.preps]), bases
-        )
-        self.num_queries = self.preps[0].num_queries
-        (tp,), self._buf, _ = _pack_args([(gather, row_base)], entry_device(device))
-        self._index = tp
-        self._gather, self._row_base = _materialize(tp, self._buf, ())
+        with span("merge.init"):
+            self.preps = list(preps)
+            bases = np.zeros(len(preps), np.int32)
+            np.cumsum(np.asarray(num_docs[:-1], np.int64), out=bases[1:])
+            gather, row_base = _flat_index(
+                np.stack([perm_of(p) for p in self.preps]), bases
+            )
+            self.num_queries = self.preps[0].num_queries
+            (tp,), self._buf, _ = _pack_args([(gather, row_base)], entry_device(device))
+            self._index = tp
+            self._gather, self._row_base = _materialize(tp, self._buf, ())
 
     def _k(self) -> int:
         """The merge width: ``k``, or when None the widest group's k
@@ -163,27 +165,30 @@ class MergedBatch:
         batch keys, so a fresh ``prepare_all`` of the same structure replays
         it. ``fused=False``: each segment's groups and the merge enqueued
         eagerly, with no synchronise (the debug path). ``plain=True`` runs
-        the kernels' plain PyTorch versions eagerly."""
-        k = self._k()
-        if plain or not fused:
-            return self.merge(
-                [g for p in self.preps for g, _qis in p.run_grouped(False, plain)],
-                k,
+        the kernels' plain PyTorch versions eagerly. Span ``batch.run``
+        (the merge has none of its own: on the fused path it runs inside
+        the replayed graph)."""
+        with span("batch.run"):
+            k = self._k()
+            if plain or not fused:
+                return self.merge(
+                    [g for p in self.preps for g, _qis in p.run_grouped(False, plain)],
+                    k,
+                )
+            bodies = [p._body(KERNELS) for p in self.preps]
+            index, q = self._index, self.num_queries
+
+            def body(bufs):
+                outs = [o for b, buf in zip(bodies, bufs) for o in b((buf,))]
+                gather, row_base = _materialize(index, bufs[-1], ())
+                return list(_merge_flat(outs[0::2], outs[1::2], gather, row_base, q=q, k=k))
+
+            kept = tuple(x for p in self.preps for x in _kept(p._dev_args))
+            vals, docs = _run_fused(
+                "batch", self.fused_key(), tuple(p._buf for p in self.preps) + (self._buf,),
+                body, kept,
             )
-        bodies = [p._body(KERNELS) for p in self.preps]
-        index, q = self._index, self.num_queries
-
-        def body(bufs):
-            outs = [o for b, buf in zip(bodies, bufs) for o in b((buf,))]
-            gather, row_base = _materialize(index, bufs[-1], ())
-            return list(_merge_flat(outs[0::2], outs[1::2], gather, row_base, q=q, k=k))
-
-        kept = tuple(x for p in self.preps for x in _kept(p._dev_args))
-        vals, docs = _run_fused(
-            "batch", self.fused_key(), tuple(p._buf for p in self.preps) + (self._buf,),
-            body, kept,
-        )
-        return vals, docs
+            return vals, docs
 
     def merge(self, outs, k: int = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The merge alone, on ``outs``: the ``(vals, docs)`` pair of every

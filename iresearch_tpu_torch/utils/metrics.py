@@ -1,7 +1,7 @@
 """Prometheus text-exposition metrics (``iresearch_tpu/utils/metrics.py``):
 the counters the host layers bump for every bounded behaviour, rendered in
-the text exposition format, written to a file or pushed to a push gateway
-(``push``, which returns False instead of raising when none answers)."""
+the text exposition format or written to a file (the CLI's
+``--metrics-out``)."""
 
 from __future__ import annotations
 
@@ -71,33 +71,6 @@ class MetricsRegistry:
         else:
             with open(fh_or_path, "w") as fh:
                 fh.write(text)
-
-    def push(
-        self,
-        gateway: str,
-        job: str = "iresearch_tpu",
-        timeout: float = 5.0,
-    ) -> bool:
-        """Push all gauges to a Prometheus PushGateway (reference:
-        scripts/Prometheus/PythonBenchmark.py:13-40 pushes Time/Memory/
-        CPU/Wall_Clock gauges). ``gateway`` is ``host:port`` or a full
-        URL. Returns False (never raises) when the gateway is
-        unreachable — metrics remain available via render()/write()."""
-        import urllib.request
-
-        url = gateway if "://" in gateway else f"http://{gateway}"
-        url = f"{url.rstrip('/')}/metrics/job/{job}"
-        try:
-            req = urllib.request.Request(
-                url,
-                data=self.render().encode(),
-                method="PUT",
-                headers={"Content-Type": "text/plain; version=0.0.4"},
-            )
-            with urllib.request.urlopen(req, timeout=timeout) as resp:
-                return 200 <= resp.status < 300
-        except Exception:
-            return False
 
 
 _registry = MetricsRegistry()

@@ -555,23 +555,20 @@ def _metrics_run(m):
     reg.gauge("irs_g", 2.5, {"b": "1", "a": "2"}, help_="a gauge")
     reg.counter("irs_c", 2, help_="a counter")
     reg.counter("irs_c", 3, {"k": "v"})
-    # no gateway answers on the loopback discard port: False, no raise
-    return reg.render(), reg.counter_value("irs_c"), reg.push("127.0.0.1:9", timeout=0.5)
+    return reg.render(), reg.counter_value("irs_c")
 
 
 @pytest.mark.parametrize("name", ["log", "timer", "pools", "resource", "metrics"])
 def test_utils_copies_match_jax(name):
     """The port's copies of ``utils/{log,timer,pools,resource}.py`` and its
-    ``metrics.py`` (with ``push``) give the JAX package's results on the
-    same calls."""
+    ``metrics.py`` (the JAX package's push to a gateway left out) give the
+    JAX package's results on the same calls."""
     import importlib
 
     run = globals()[f"_{name}_run"]
     got = run(importlib.import_module(f"iresearch_tpu_torch.utils.{name}"))
     want = run(importlib.import_module(f"iresearch_tpu.utils.{name}"))
     assert got == want
-    if name == "metrics":
-        assert got[2] is False
 
 
 # --- copies of the ingest path (analysis, index lifecycle, host functions) --

@@ -179,6 +179,24 @@ def test_fused_cache_is_lru_bounded(bench, monkeypatch):
     assert not B._FUSED_CACHE
 
 
+def test_fused_cache_counts_hits_misses_evictions(bench, monkeypatch):
+    """``fused_cache_stats()`` counts the "batch" LRU's lookups as
+    ``test_fused_cache_is_lru_bounded`` makes them; clearing the cache
+    keeps the counts, and on the CPU nothing is captured."""
+    monkeypatch.setattr(B, "_FUSED_CACHE_MAX", 2)
+    port, _ref = _batches(bench)
+    preps = [port.prepare(0, k) for k in (K, K - 1, K - 2)]
+    before = B.fused_cache_stats()
+    for i in (0, 1, 0, 2, 1):  # miss, miss, hit, miss evicting 1, miss evicting 0
+        preps[i].run_grouped()
+    B.clear_fused_cache()
+    after = B.fused_cache_stats()
+    got = {name: after["batch"][name] - before["batch"][name] for name in after["batch"]}
+    assert got == {"hits": 1, "misses": 4, "evictions": 2, "captures": 0,
+                   "capture_s": 0.0, "nodes": 0}
+    assert after["single"] == before["single"] and after["sharded"] == before["sharded"]
+
+
 def test_fresh_batch_hit_copies_its_buffer(bench):
     """A fresh batch of the same structure (two queries of one group
     swapped, so its packed rows differ) hits the entry that the first batch
