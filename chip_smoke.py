@@ -27,7 +27,11 @@ Drives the port's main path — ``QueryBatch(mix, [sr], BM25(), wand=True)
    ``target_ms`` the larger of ``bound_ms`` and the call list's launches
    times the floor. ``plain_ms`` is the plain version's eager time between
    events; ``library_ms``, for K2, one PyTorch call of the same function
-   (``index_select`` per pool; the port never calls it);
+   (``index_select`` per pool; the port never calls it). K4, the top-k
+   select (``ops/topk.py:topk_docs``), on every call the mix's groups
+   make: each against its plain version, the int64-key ``torch.topk``,
+   bit for bit, and the call list timed as K2's (``library_ms``:
+   ``torch.topk`` over the bare values, which has no tie rule);
 6. runs the main path twice under PyTorch's sync debug mode set to raise:
    the first run captures the pass into a CUDA graph and replays it (its
    ms, the capture's host ms, the graph's nodes, its kernel launches per
@@ -269,11 +273,13 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "iresearch_tpu_torch/kernels/csrc/irs_kernels.cu"
+SOURCES = {"topk_docs": "iresearch_tpu_torch/kernels/csrc/irs_topk.cu"}
 REPLACES = {
     "dense_scan_rowmax": "iresearch_tpu/ops/dense_scan.py:199",
     "dma_row_slices": "iresearch_tpu/ops/dma_gather.py:82",
     "decode_rows": "iresearch_tpu/ops/decode.py:100",
     "decode_score_rows": "iresearch_tpu/ops/decode.py:100",
+    "topk_docs": "none (XLA's lax.top_k, iresearch_tpu/ops/topk.py:wide_top_k)",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -411,13 +417,17 @@ def bound(nbytes, flops=0.0):
 
 def record_calls(kernels, fn, args, kw):
     """Run ``fn`` on the kernel set with every kernel wrapped to note its
-    arguments: {field: [(args, kwargs), ...]} of the calls it really made."""
+    arguments: {field: [(args, kwargs), ...]} of the calls it really made.
+    A ``topk`` call (K4) is held against its plain version as it returns
+    (``k4_noted``), so that its short-lived inputs are not kept, and noted
+    by its (Q, n, k)."""
     rec = {name: [] for name in kernels._fields}
 
     def noting(name, kernel):
         def call(*a, **k):
-            rec[name].append((a, k))
-            return kernel(*a, **k)
+            out = kernel(*a, **k)
+            rec[name].append(k4_noted(a, out) if name == "topk" else (a, k))
+            return out
         return call
 
     fn(kernels._replace(**{n: noting(n, getattr(kernels, n)) for n in kernels._fields}),
@@ -649,6 +659,61 @@ def k2_equal(torch, pools, starts, R):
         raise AssertionError("K2 differs from plain")
 
 
+def k4_noted(args, got):
+    """One ``topk`` call (K4) on ``args`` (scores, docs, k) that returned
+    ``got``, held bit for bit against its plain version, the key path, on
+    the same inputs; returns its (Q, n, k)."""
+    import torch
+
+    from iresearch_tpu_torch.ops import topk as tk
+
+    scores, docs, k = args
+    want = tk.topk_docs_ref(scores, docs, k)
+    shape = (scores[..., 0].numel(), scores.shape[-1], k)
+    if (got[0].shape != want[0].shape or got[1].dtype != want[1].dtype
+            or not torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            or not torch.equal(got[1], want[1])):
+        raise AssertionError(f"K4 differs from the key path at (Q, n, k) {shape}")
+    return shape
+
+
+def k4_launches(noted, what) -> int:
+    """The K4 launches that the noted ``topk`` calls ([(Q, n, k)], each
+    held against the key path already) made."""
+    from iresearch_tpu_torch.ops import topk as tk
+
+    n = sum(tk.launches(c[1], c[2]) for c in noted if c[0])
+    print(f"K4 vs the key path ({what}): bit-exact on {len(noted)} calls "
+          f"{dict(Counter(noted))} (Q, n, k), {n} launches")
+    return n
+
+
+def check_k4(torch, prep, kern, floor, smi):
+    """K4 on every ``topk`` call of the groups of ``prep`` (one eager run
+    of each, its inputs kept): held against the key path, then the call
+    list timed as K2's; ``bound_ms`` from the bytes the calls must read
+    and write."""
+    from iresearch_tpu_torch.exec.batch import KERNELS
+    from iresearch_tpu_torch.ops import topk as tk
+
+    calls = []
+
+    def keep(scores, docs, k):
+        calls.append((scores.clone(), None if docs is None else docs.clone(), k))
+        return tk.topk_docs(scores, docs, k)
+
+    for _t, _q, fn, args, kw in prep.calls:
+        fn(KERNELS._replace(topk=keep), *args, **kw)
+    launches = k4_launches([k4_noted(c, tk.topk_docs(*c)) for c in calls], "main path's groups")
+    nbytes = sum(s.numel() * 4 + (0 if d is None else d.numel() * d.element_size())
+                 + s[..., 0].numel() * k * 8 for s, d, k in calls)
+    r = timed(torch, lambda: [tk.topk_docs(s, d, k) for s, d, k in calls],
+              lambda: [tk.topk_docs_ref(s, d, k) for s, d, k in calls], launches, nbytes, 0.0,
+              floor, library=lambda: [torch.topk(s, k, dim=-1) for s, _d, k in calls])
+    kern["topk_docs"] = dict(r, calls=len(calls), launches_checked=launches)
+    show(f"topk_docs, {len(calls)} calls", r, smi)
+
+
 def check_calls(torch, prep, what):
     """Every call of a kernel's wrapper that the groups of a prepared batch
     make, recorded and held bit for bit against the kernel's plain version
@@ -670,7 +735,37 @@ def check_recorded(torch, rec, what):
           f"{[(tuple(a[1].shape), a[2]) for a, _kw in rec['row_slices']]} (starts, R)")
     check_k3(torch, *k3_lists(rec), what)
     return Counter(dense_scan_rowmax=len(rec["rowmax"]), dma_row_slices=len(rec["row_slices"]),
-                   decode_rows=len(rec["decode"]), decode_score_rows=len(rec["decode_score"]))
+                   decode_rows=len(rec["decode"]), decode_score_rows=len(rec["decode_score"]),
+                   topk_docs=k4_launches(rec["topk"], what))
+
+
+def check_merge(mb, what):
+    """The cross-segment merge of a ``MergedBatch`` over its segments'
+    eager groups, on the recorded kernels: its K4 calls held against the
+    key path; returns the launches checked."""
+    from iresearch_tpu_torch.exec.batch import KERNELS
+
+    outs = [g for p in mb.preps for g, _q in p.run_grouped(False)]
+    rec = record_calls(KERNELS, lambda kern: mb.merge(outs, mb._k(), kern), (), {})
+    return Counter(topk_docs=k4_launches(rec["topk"], f"{what}, merge"))
+
+
+def check_sharded(torch, prep, k, what):
+    """Every wrapper call of one eager pass of a prepared sharded batch at
+    top-``k``, group by group (``_group_body`` on the recorded kernels:
+    each shard's runners, then the join or the one shard's re-rank), held
+    bit for bit against the kernels' plain versions; returns the calls
+    checked per kernel (K4's launches)."""
+    from iresearch_tpu_torch.exec.batch import KERNELS
+
+    s = prep.searcher
+    rec = {name: [] for name in KERNELS._fields}
+    for gi, (qis, _mode, _wand, cap) in enumerate(prep.groups):
+        kk = min(k, s.nd_pad, cap)
+        body = lambda kern: prep._group_body(gi, kk, len(qis), kern)(None)  # noqa: E731
+        for name, made in record_calls(KERNELS, body, (), {}).items():
+            rec[name].extend(made)
+    return check_recorded(torch, rec, what)
 
 
 def check_k1(torch, prep, out, floor):
@@ -1492,6 +1587,7 @@ def run_index(torch, srs, tasks, scorer, k, dev, smi, kind, profile):
     # smaller segments give the kernels shapes that segment 0 does not
     checked = [check_calls(torch, p, f"index segment {s}") for s, p in enumerate(mb.preps)]
     beyond = sum(checked[1:], Counter())
+    checked.append(check_merge(mb, "index pass"))
     print(f"index pass, wrapper calls held against plain: {[dict(c) for c in checked]}")
     for name in ("dense_scan_rowmax", "dma_row_slices", "decode_score_rows"):
         if beyond[name] <= 0:
@@ -1743,7 +1839,7 @@ def run_sharded(torch, srs, tasks, scorer, k, dev, smi, kind, profile, merged):
                                            torch.stack([d for _v, d in eager]))],
                  "sharded pass: fused and eager")
     t1 = time.perf_counter()
-    checked = check_calls(torch, prep, "sharded")
+    checked = check_sharded(torch, prep, k, "sharded")
     print(f"sharded pass, wrapper calls held against plain: {dict(checked)} "
           f"({time.perf_counter() - t1:.3f} s)")
     for name, n in launches.items():
@@ -1965,7 +2061,7 @@ def run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one_shard, profile
         assert_gate(vals[qi], docs[qi], gd[qi][fin], gv[qi][fin], f"mesh q{qi} vs prepare_all")
     print(f"mesh pass vs prepare_all: {len(tasks)} queries pass the exactness gate")
     t1 = time.perf_counter()
-    checked = check_calls(torch, prep, "mesh, every shard")
+    checked = check_sharded(torch, prep, k, "mesh, every shard")
     print(f"mesh pass, wrapper calls of every shard held against plain: {dict(checked)} "
           f"({time.perf_counter() - t1:.3f} s)")
     for name, n in launches.items():
@@ -1975,7 +2071,7 @@ def run_mesh(torch, srs, tasks, scorer, k, smi, kind, merged, one_shard, profile
     # onto the first card, concatenated and re-ranked, inputs ready
     joins = []
     real = ss._join
-    ss._join = lambda outs, q, kk: joins.append((outs, q, kk)) or real(outs, q, kk)
+    ss._join = lambda *a: joins.append(a) or real(*a)
     try:
         prep.run(k)
     finally:
@@ -2152,7 +2248,7 @@ def run_nccl(torch, srs, paths, tasks, scorer, k, smi, kind, mesh_launches, mesh
                   f"{int((vals.view(np.int32) == wv.view(np.int32)).all(1).sum())} of "
                   f"{len(tasks)} queries, the others within rtol 1e-5")
         t1 = time.perf_counter()
-        checked = check_calls(torch, prep, "nccl, every shard")
+        checked = check_sharded(torch, prep, k, "nccl, every shard")
         print(f"nccl pass, wrapper calls held against plain: {dict(checked)} "
               f"({time.perf_counter() - t1:.3f} s)")
         for name, n in launches.items():
@@ -2162,7 +2258,7 @@ def run_nccl(torch, srs, paths, tasks, scorer, k, smi, kind, mesh_launches, mesh
         # copied, concatenated, gathered over NCCL and re-ranked
         joins = []
         real = ss._join
-        ss._join = lambda outs, q, kk: joins.append((outs, q, kk)) or real(outs, q, kk)
+        ss._join = lambda *a: joins.append(a) or real(*a)
         try:
             prep.run(k, fused=False)
         finally:
@@ -2407,6 +2503,7 @@ def serve_ingested(torch, reader, term, scorer, k, dev, smi, kind):
                              f"{sorted(hitless)}, of the removed term {sorted(gone)}")
     checked = sum((check_calls(torch, p, f"ingested segment {s}")
                    for s, p in enumerate(mb.preps)), Counter())
+    checked += check_merge(mb, "ingested pass")
     for name, n in launches.items():
         if n > checked[name]:
             raise AssertionError(f"kernel {name}: {n} launches in the pass, fewer calls checked")
@@ -2925,6 +3022,7 @@ def main() -> int:
     print(f"launch floor (an empty kernel, device time per launch): {floor} ms on {smi}")
     check_k1(torch, prep, kern, floor)
     check_k2_k3(torch, prep, kern, floor, smi)
+    check_k4(torch, prep, kern, floor, smi)
     phase("5 kernels", t0)
     if args.kernel_times:
         check_gather(torch, tier_batch(sr, scorer, k, dev)[0], kern, floor, smi)
@@ -3081,7 +3179,7 @@ def main() -> int:
         if sum(c[name] for c in counts.values()) <= 0:
             raise AssertionError(f"kernel {name} never launched on a main path")
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+        dict(name=name, route="cuda", source=SOURCES.get(name, SOURCE), replaces=REPLACES[name],
              launches=sum(c[name] for c in counts.values()),
              **{key: c[name] for key, c in counts.items()}, **kern[name])
         for name in kb.KERNELS

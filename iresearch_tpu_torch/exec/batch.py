@@ -67,7 +67,7 @@ from iresearch_tpu_torch.formats.spec import BLOCK
 from iresearch_tpu_torch.index.segment import _pow2, device_state
 from iresearch_tpu_torch.kernels import build as kb
 from iresearch_tpu_torch.ops.dense_scan import score_rows
-from iresearch_tpu_torch.ops.topk import _IMAX32, topk_docs
+from iresearch_tpu_torch.ops.topk import _IMAX32
 from iresearch_tpu_torch.search import filters as F
 from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32
 from iresearch_tpu_torch.utils.timer import note, span
@@ -128,7 +128,7 @@ def _stack_dense_dyn(dense_dyn):
 
 def _run_skyline(kern, span_pools, norms_grid, rows_b, starts_b, ws_b, avgdl, **kw):
     return skyline_topk_batch(
-        span_pools, norms_grid, rows_b, starts_b, ws_b, avgdl, **kw
+        span_pools, norms_grid, rows_b, starts_b, ws_b, avgdl, kern=kern, **kw
     )
 
 
@@ -144,7 +144,7 @@ def _run_scan(
         scorer=scorer, span_bits=span_bits, conj=conj, mm=mm,
     )
     m = min(max(2 * k, 16), ndrows)
-    _rv, rows = topk_docs(bv, None, m)  # [Q, m]
+    _rv, rows = kern.topk(bv, None, m)  # [Q, m]
     masked = score_rows(
         pools, starts, ws, norms_grid, avgdl_t, rows,
         scorer=scorer, span_bits=span_bits, conj=conj, mm=mm,
@@ -152,7 +152,7 @@ def _run_scan(
     lane = torch.arange(BLOCK, dtype=torch.int32, device=rows.device)
     docs = rows[:, :, None] * BLOCK + lane
     q = rows.shape[0]
-    return topk_docs(masked.reshape(q, -1), docs.reshape(q, -1), k)
+    return kern.topk(masked.reshape(q, -1), docs.reshape(q, -1), k)
 
 
 def _run_fold(
@@ -188,7 +188,7 @@ def _run_fold(
             nd=nd, kern=kern,
             dense_args=_dense_args(dense_shared, dd), dense_static=dense_static,
         )
-        return topk_docs(torch.where(match, score, _NEG_INF), None, k)
+        return kern.topk(torch.where(match, score, _NEG_INF), None, k)
 
     width = nd * (max(1, num_leaves) + len(aux_rows))
     pr = phrase(kern) if callable(phrase) else phrase

@@ -45,7 +45,7 @@ from iresearch_tpu_torch.formats.bitpack import (
     words_per_block,
 )
 from iresearch_tpu_torch.formats.spec import BLOCK
-from iresearch_tpu_torch.ops.topk import _IMAX32, topk_docs
+from iresearch_tpu_torch.ops.topk import _IMAX32
 from iresearch_tpu_torch.search.scorers import Scorer, score_block_torch
 
 
@@ -91,7 +91,7 @@ def dslice_core(
         live = live & gather_clamped(alive, docs)
     docs = torch.where(live, docs, _IMAX32)
     masked = torch.where(live, sc, _NEG_INF)
-    return topk_docs(masked.reshape(Q, -1), docs.reshape(Q, -1), k)
+    return kern.topk(masked.reshape(Q, -1), docs.reshape(Q, -1), k)
 
 
 def dslice_topk(
@@ -135,7 +135,7 @@ def direct_topk(pools, rowsets, avgdl, alive, *, gbits, scorer, k, kern=KERNELS)
     sentinel decodes to doc 0 with freq 0; both carry matched=False."""
     docs, sc, m, _ = decode_flat(pools, rowsets, avgdl, gbits, scorer, kern=kern)
     match = m if alive is None else m & gather_clamped(alive, docs)
-    return topk_docs(torch.where(match, sc, _NEG_INF), docs, k)
+    return kern.topk(torch.where(match, sc, _NEG_INF), docs, k)
 
 
 def _shift_right(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -200,7 +200,7 @@ def sorted_topk(
     match = match & is_end
     if alive is not None:
         match = match & gather_clamped(alive, sdocs)
-    return topk_docs(torch.where(match, score, _NEG_INF), sdocs, k)
+    return kern.topk(torch.where(match, score, _NEG_INF), sdocs, k)
 
 
 def dense_probe(dargs, dstat, cdocs, scorer: Scorer, dl=None):
@@ -333,10 +333,10 @@ def join_topk(
             match = match & gather_clamped(alive, cdocs)
         out_docs.append(cdocs)
         out_masked.append(torch.where(match, score, _NEG_INF))
-    return topk_docs(torch.cat(out_masked, dim=-1), torch.cat(out_docs, dim=-1), k)
+    return kern.topk(torch.cat(out_masked, dim=-1), torch.cat(out_docs, dim=-1), k)
 
 
-def merge_topk_lists(va, da, vb, db, k: int):
+def merge_topk_lists(va, da, vb, db, k: int, kern=KERNELS):
     """Exact union of two per-view top-k lists, deduped by doc (the max
     score wins: views only ever underestimate), in (score desc, doc asc)
     order (``exec/candidates.py:merge_topk_lists``)."""
@@ -351,7 +351,7 @@ def merge_topk_lists(va, da, vb, db, k: int):
     first = torch.ones_like(sd, dtype=torch.bool)
     first[:, 1:] = sd[:, 1:] != sd[:, :-1]
     keep = torch.where(first & (sd != _IMAX32), sv, _NEG_INF)
-    return topk_docs(keep, sd, k)
+    return kern.topk(keep, sd, k)
 
 
 def gridmix_topk(
@@ -380,7 +380,7 @@ def gridmix_topk(
     if alive is not None:
         match = match & alive
     grid_ids = torch.arange(nd, dtype=torch.int32, device=dev).expand(q, nd)
-    va, da = topk_docs(torch.where(match, score, _NEG_INF), grid_ids, k)
+    va, da = kern.topk(torch.where(match, score, _NEG_INF), grid_ids, k)
     # view B's candidate space is only the sparse lanes: its k caps there
     p_sp = sum(rs[0].shape[-1] for rs in rowsets) * BLOCK
     vb, db = sorted_topk(
@@ -389,7 +389,7 @@ def gridmix_topk(
         k=min(k, p_sp), kern=kern,
         dense_leaf=(score_d, count_d, dense_leaves),
     )
-    return merge_topk_lists(va, da, vb, db, k)
+    return merge_topk_lists(va, da, vb, db, k, kern)
 
 
 def wand_theta(
@@ -407,7 +407,7 @@ def wand_theta(
             pools, sorted_sets, avgdl, gbits, scorer, kern=kern, slicer=slicer
         )
         pm = m if alive is None else m & gather_clamped(alive, docs)
-        theta = torch.topk(torch.where(pm, sc, _NEG_INF), k, dim=-1).values[:, k - 1]
+        theta = kern.topk(torch.where(pm, sc, _NEG_INF), None, k)[0][:, k - 1]
     else:  # sort-compact partial fold
         vals, _docs = sorted_topk(
             pools, sorted_sets, avgdl, leaf_min, alive,

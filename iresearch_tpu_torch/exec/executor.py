@@ -62,7 +62,7 @@ from iresearch_tpu_torch.ops.dense_scan import (
     dense_scan_rowmax_ref,
 )
 from iresearch_tpu_torch.ops.dma_gather import dma_row_slices, dma_row_slices_ref
-from iresearch_tpu_torch.ops.topk import topk_docs
+from iresearch_tpu_torch.ops.topk import topk_docs, topk_docs_ref
 from iresearch_tpu_torch.search import filters as F
 from iresearch_tpu_torch.search.host_eval import HostQuery
 from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32, score_block_torch
@@ -70,16 +70,17 @@ from iresearch_tpu_torch.utils.timer import note, span
 
 _NEG_INF = float("-inf")
 
-# the kernels (K3 in its plain and its scored form); PLAIN holds their
-# plain versions, which a runner given ``PLAIN`` calls directly (the kernel
-# wrappers themselves take the plain version only for CPU tensors)
-Kernels = namedtuple("Kernels", "rowmax row_slices decode decode_score")
+# the kernels (K3 in its plain and its scored form, K4 the top-k); PLAIN
+# holds their plain versions, which a runner given ``PLAIN`` calls directly
+# (the kernel wrappers themselves take the plain version only for CPU
+# tensors)
+Kernels = namedtuple("Kernels", "rowmax row_slices decode decode_score topk")
 KERNELS = Kernels(
-    dense_scan_rowmax, dma_row_slices, decode_rows, decode_score_rows
+    dense_scan_rowmax, dma_row_slices, decode_rows, decode_score_rows, topk_docs
 )
 PLAIN = Kernels(
     dense_scan_rowmax_ref, dma_row_slices_ref, decode_rows_ref,
-    decode_score_rows_ref,
+    decode_score_rows_ref, topk_docs_ref,
 )
 
 
@@ -395,7 +396,7 @@ def wand_body(
         # (ties keep extra rows; more sampled decode only tightens θ)
         ub = dargs[5]
         s = min(sample, ub.shape[-1])
-        return ub >= torch.topk(ub, s, dim=-1).values[:, s - 1 : s]
+        return ub >= kern.topk(ub, None, s)[0][:, s - 1 : s]
 
     sorted_sets = [sort_by_ub(rs) for rs in rowsets]
     pm, ps = fold_pass(
@@ -403,15 +404,15 @@ def wand_body(
     )
     partial = torch.where(pm, ps, _NEG_INF)
     if mode == "approx":
-        return topk_docs(partial, None, k)
-    theta = torch.topk(partial, k, dim=-1).values[:, k - 1]
+        return kern.topk(partial, None, k)
+    theta = kern.topk(partial, None, k)[0][:, k - 1]
     if mode != "strict":
         theta = shave_theta(theta)
     match, score = fold_pass(
         [prune_rows(rs, theta) for rs in sorted_sets],
         lambda dargs: (dargs[5] + dargs[6][:, None]) >= theta[:, None],
     )
-    return topk_docs(torch.where(match, score, _NEG_INF), None, k)
+    return kern.topk(torch.where(match, score, _NEG_INF), None, k)
 
 
 def entry_device(device) -> torch.device:

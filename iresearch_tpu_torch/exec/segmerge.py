@@ -14,10 +14,10 @@ the host until the caller fetches the final [Q, k]:
   back to query order with a per-segment inverse permutation (static per
   prepared batch);
 * the ``S * k`` global candidates of each query merge by (score desc,
-  global doc asc): one int64 key per (score, doc) and one ``torch.topk``
-  (``ops/topk.py:topk_docs``), where the JAX package sorts on two keys
-  with ``lax.sort``. Ties across segments so come out in the engine-wide
-  (score, doc) order.
+  global doc asc): one select by one int64 key per (score, doc)
+  (``ops/topk.py:topk_docs``, K4 on the card), where the JAX package
+  sorts on two keys with ``lax.sort``. Ties across segments so come out
+  in the engine-wide (score, doc) order.
 
 Global doc ids are ``segment_base + local_doc`` with bases the prefix sum
 of segment doc counts (must stay < 2^31: docs are int32 in both packages).
@@ -43,23 +43,24 @@ import torch
 
 from iresearch_tpu_torch.exec.batch import (
     KERNELS,
+    PLAIN,
     _kept,
     _materialize,
     _pack_args,
     _run_fused,
     entry_device,
 )
-from iresearch_tpu_torch.ops.topk import topk_docs
 from iresearch_tpu_torch.utils.timer import span
 
 _NEG_INF = float("-inf")
 
 
-def _merge_flat(gvs, gds, gather, row_base, *, q: int, k: int):
+def _merge_flat(gvs, gds, gather, row_base, *, q: int, k: int, kern=KERNELS):
     """The merge on flat lists of per-group ``[Qg, k']`` tensors, every
     segment's groups in order. ``gather`` int64 [q * S] names, query by
     query and segment by segment, the row of their concatenation;
-    ``row_base`` int32 [S * q] is each concatenated row's segment base."""
+    ``row_base`` int32 [S * q] is each concatenated row's segment base;
+    the select is ``kern.topk``."""
 
     def padk(a, fill):
         if a.shape[1] == k:
@@ -68,7 +69,7 @@ def _merge_flat(gvs, gds, gather, row_base, *, q: int, k: int):
 
     v = torch.cat([padk(g, _NEG_INF) for g in gvs])
     d = torch.cat([padk(g, 0) for g in gds]) + row_base[:, None]
-    return topk_docs(v[gather].reshape(q, -1), d[gather].reshape(q, -1), k)
+    return kern.topk(v[gather].reshape(q, -1), d[gather].reshape(q, -1), k)
 
 
 def _flat_index(perms: np.ndarray, bases: np.ndarray):
@@ -173,7 +174,7 @@ class MergedBatch:
             if plain or not fused:
                 return self.merge(
                     [g for p in self.preps for g, _qis in p.run_grouped(False, plain)],
-                    k,
+                    k, PLAIN if plain else KERNELS,
                 )
             bodies = [p._body(KERNELS) for p in self.preps]
             index, q = self._index, self.num_queries
@@ -190,15 +191,15 @@ class MergedBatch:
             )
             return vals, docs
 
-    def merge(self, outs, k: int = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def merge(self, outs, k: int = None, kern=KERNELS) -> Tuple[torch.Tensor, torch.Tensor]:
         """The merge alone, on ``outs``: the ``(vals, docs)`` pair of every
-        group of every segment, in ``preps`` order; ``k`` defaults to
-        ``self.k`` or the widest group."""
+        group of every segment, in ``preps`` order, on the kernel set
+        ``kern``; ``k`` defaults to ``self.k`` or the widest group."""
         if k is None:
             k = self.k if self.k is not None else max(v.shape[1] for v, _d in outs)
         return _merge_flat(
             [v for v, _d in outs], [d for _v, d in outs],
-            self._gather, self._row_base, q=self.num_queries, k=k,
+            self._gather, self._row_base, q=self.num_queries, k=k, kern=kern,
         )
 
     def search(self, k: int) -> List[List[Tuple[int, float]]]:

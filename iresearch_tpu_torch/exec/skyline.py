@@ -61,11 +61,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from iresearch_tpu_torch.exec.executor import scan_shape
+from iresearch_tpu_torch.exec.executor import KERNELS, scan_shape
 from iresearch_tpu_torch.formats.bitpack import BITS, unpack_blocks, unpack_torch
 from iresearch_tpu_torch.formats.spec import BLOCK as BLOCK_L, NUM_CLASSES
 from iresearch_tpu_torch.index.segment import dl_rows
-from iresearch_tpu_torch.ops.topk import topk_docs
 from iresearch_tpu_torch.search.scorers import (
     BM25,
     TFIDF,
@@ -454,10 +453,11 @@ def skyline_topk_batch(
     ndrows: int,
     conj: bool = False,
     mm: int = 1,
+    kern=KERNELS,
 ):
     """Per-query (vals f32 [Q, k], docs i32 [Q, k]) over the survivor rows
     only: flat row gathers for the whole batch, exact rescore through
-    ``score_block``, then the (score desc, doc asc) top-k."""
+    ``score_block``, then the (score desc, doc asc) top-k (``kern.topk``)."""
     S = len(span_pools)
     Q, M = rows_b.shape
     parked = rows_b >= ndrows  # [Q, M]
@@ -489,4 +489,4 @@ def skyline_topk_batch(
         torch.int32
     )
     masked = torch.where(match, score, float("-inf"))
-    return topk_docs(masked.reshape(Q, -1), docs.reshape(Q, -1), k)
+    return kern.topk(masked.reshape(Q, -1), docs.reshape(Q, -1), k)

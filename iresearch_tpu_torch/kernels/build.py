@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 
 KERNELS = (
     "dense_scan_rowmax", "dma_row_slices", "decode_rows", "decode_score_rows",
+    "topk_docs",
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _apart: Optional[Dict[str, int]] = None
@@ -141,12 +142,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P, F, I, F, F,  # w, avgdl_dev, avgdl, kind, kb, c0
         P, P, P, P, P,  # docs, scores, matched, dl, stream
     ]
+    lib.irs_topk_docs.argtypes = [
+        P, LL, LL, P, LL, LL, I,  # scores, strides; docs, strides, kind
+        LL, LL, I, I, P, P, P,  # Q, n, tiles, k, out_vals, out_docs, stream
+    ]
+    lib.irs_topk_sort.argtypes = [
+        P, P, I, LL, LL,  # vals, docs, kind, Q, k
+        P, P, P, P, P,  # keys, pos, out_vals, out_docs, stream
+    ]
     lib.irs_noop.argtypes = [P]
     lib.irs_capture_nodes.argtypes = [P, PLL]
     for fn in (
         lib.irs_dense_scan_rowmax, lib.irs_dma_row_slices,
-        lib.irs_decode_rows, lib.irs_decode_score_rows, lib.irs_noop,
-        lib.irs_capture_nodes,
+        lib.irs_decode_rows, lib.irs_decode_score_rows, lib.irs_topk_docs,
+        lib.irs_topk_sort,
+        lib.irs_noop, lib.irs_capture_nodes,
     ):
         fn.restype = ctypes.c_int
     lib.irs_error_string.argtypes = [I]

@@ -1,5 +1,5 @@
-"""Device operations of the port: exact top-k and the three kernels
-(K1 ``dense_scan``, K2 ``dma_gather``, K3 ``decode``).
+"""Device operations of the port: the four kernels (K1 ``dense_scan``, K2
+``dma_gather``, K3 ``decode``, K4 ``topk``, the exact top-k).
 
 Exports, against the JAX package's ``iresearch_tpu/ops``:
 

@@ -86,7 +86,6 @@ from iresearch_tpu_torch.exec.phrase import phrase_rows
 from iresearch_tpu_torch.exec.plan import PlanCompiler
 from iresearch_tpu_torch.formats.bitpack import BITS, words_per_block
 from iresearch_tpu_torch.index.segment import _i32, device_state
-from iresearch_tpu_torch.ops.topk import topk_docs
 from iresearch_tpu_torch.search import filters as F
 from iresearch_tpu_torch.search.host_eval import HostQuery
 from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32
@@ -806,12 +805,12 @@ class ShardedSearcher:
             calls.append((tier, qis, _run_fold, args, kwargs, si))
         return (qis, mode, use_wand, cap), calls
 
-    def _shard_candidates(self, runs, q: int, kk: int, dev):
+    def _shard_candidates(self, runs, q: int, kk: int, dev, kern=KERNELS):
         """[vals, docs] of one shard from its segments' ``runs`` ([((vals,
         local docs), segment)]): the docs made global, the top-k lists
         concatenated along the candidate axis to ``per_shard * kk`` (the
         padding segments given no candidate), and where nothing joins the
-        shards (``joined``) the final re-rank."""
+        shards (``joined``) the final re-rank (``kern.topk``)."""
         vals = [v for (v, _d), _si in runs]
         docs = [d + int(self._doc_base[si]) for (_v, d), si in runs]
         pad = self.per_shard - len(runs)
@@ -820,17 +819,17 @@ class ShardedSearcher:
                                    device=dev))
             docs.append(torch.zeros((q, kk * pad), dtype=torch.int32, device=dev))
         vals, docs = torch.cat(vals, dim=1), torch.cat(docs, dim=1)
-        return list((vals, docs) if self.joined else topk_docs(vals, docs, kk))
+        return list((vals, docs) if self.joined else kern.topk(vals, docs, kk))
 
-    def _join(self, outs, q: int, kk: int):
+    def _join(self, outs, q: int, kk: int, kern=KERNELS):
         """Global [vals [q, kk], docs [q, kk]] of this process's shards'
         candidates ``outs`` ([vals, docs] per shard, None for a shard
         without segments, which gives ``-inf`` candidates): each copied onto
         the mesh's first device (ordered after the current streams of both
         cards; peer to peer where the cards allow it), concatenated in shard
         order, gathered across the group's processes (``_all_gather``) and
-        re-ranked by (score desc, doc asc) (the JAX package's
-        ``sharded.py:848-863``). Makes no host wait, so that a graph can
+        re-ranked by (score desc, doc asc) with ``kern.topk`` (the JAX
+        package's ``sharded.py:848-863``). Makes no host wait, so that a graph can
         hold it on an NCCL mesh."""
         dev = self.device
         w = self.per_shard * kk
@@ -842,7 +841,7 @@ class ShardedSearcher:
             else o[1].to(dev, non_blocking=True) for o in outs], dim=1)
         if self.mesh.world > 1 or self.mesh.join_in_graph:
             vals, docs = _all_gather(vals, docs, self.mesh)
-        return list(topk_docs(vals, docs, kk))
+        return list(kern.topk(vals, docs, kk))
 
     def search(
         self, flt: F.Filter, scorer: Optional[Scorer] = None, k: int = 10
@@ -960,7 +959,7 @@ class PreparedShardedBatch:
                                              for _fn, tp, _kw, _si in tps]
             runs = [(fn(kern, *a, **dict(kw, k=kk)), si)
                     for (fn, _tp, kw, si), a in zip(tps, args)]
-            return s._shard_candidates(runs, q, kk, dev)
+            return s._shard_candidates(runs, q, kk, dev, kern)
 
         return body
 
@@ -979,7 +978,7 @@ class PreparedShardedBatch:
             outs = [None] * len(self._packs[gi])
             for i, (j, b) in enumerate(zip(live, bodies)):
                 outs[j] = b(None if bufs is None else (bufs[i],))
-            return s._join(outs, q, kk) if s.joined else outs[0]
+            return s._join(outs, q, kk, kern) if s.joined else outs[0]
 
         return body
 
@@ -1032,7 +1031,7 @@ class PreparedShardedBatch:
         out = [None] * self.num_queries
         for qis, kk, outs, got in issued:
             if got is None:
-                got = s._join(outs, len(qis), kk) if s.joined else outs[0]
+                got = s._join(outs, len(qis), kk, kern) if s.joined else outs[0]
             vals, docs = got
             for j, qi in enumerate(qis):
                 out[qi] = (vals[j], docs[j])

@@ -13,6 +13,7 @@ import jax.numpy as jnp  # noqa: E402
 from iresearch_tpu.formats.bitpack import BITS, pack_blocks, unpack_jnp  # noqa: E402
 from iresearch_tpu.search.scorers import BM25, TFIDF, BoostScore, score_block  # noqa: E402
 from iresearch_tpu_torch.formats.bitpack import unpack_torch  # noqa: E402
+from iresearch_tpu_torch.ops import topk as tk  # noqa: E402
 from iresearch_tpu_torch.ops.topk import topk_docs  # noqa: E402
 from iresearch_tpu_torch.search.scorers import (  # noqa: E402
     score_block_torch,
@@ -137,6 +138,148 @@ def test_topk_docs_batched_with_parked_docs():
         wv, wd = _jax_topk_canonical(x[q], docs[q], 10)
         np.testing.assert_array_equal(v[q].numpy(), wv)
         np.testing.assert_array_equal(d[q].numpy(), wd)
+
+
+def _tiled_select(calls):
+    """A stand-in for one K4 launch (``ops/topk.py:_select``) on the CPU:
+    each tile's top k by the plain version, written where the kernel writes
+    it, in reverse order where the kernel leaves them unsorted; records
+    (n, tiles, k) and checks the tile bounds K4 relies on."""
+
+    def select(scores, docs, tiles, k, vals, out):
+        q, n = scores.shape
+        calls.append((n, tiles, k))
+        for t in range(tiles):
+            a, b = t * n // tiles, (t + 1) * n // tiles
+            assert k <= b - a <= tk._tile_cap(k)
+            d = (torch.arange(a, b, dtype=torch.int32).expand(q, b - a)
+                 if docs is None else docs[:, a:b])
+            v, dd = tk.topk_docs_ref(scores[:, a:b], d, k)
+            if tiles > 1 or k > tk.K4_MAX_K:
+                v, dd = v.flip(-1), dd.flip(-1)
+            vals[:, t * k:(t + 1) * k] = v
+            out[:, t * k:(t + 1) * k] = dd
+
+    return select
+
+
+def _sorting(calls):
+    """A stand-in for K4's sort (``ops/topk.py:_sort``) on the CPU: the
+    plain version over the unsorted winners; records ("sort", launches)."""
+
+    def sort(vals, docs, out_vals, out_docs):
+        assert vals.shape[1] > tk.K4_MAX_K and vals.is_contiguous() and docs.is_contiguous()
+        calls.append(("sort", tk._sort_launches(vals.shape[1])))
+        v, d = tk.topk_docs_ref(vals, docs, vals.shape[1])
+        out_vals.copy_(v)
+        out_docs.copy_(d)
+
+    return sort
+
+
+def _topk_docs_arg(rng, form, shape):
+    n = shape[-1]
+    if form is None:
+        return None
+    if form == "expanded":
+        return torch.arange(n, dtype=torch.int32).expand(shape)
+    if form == "strided":
+        wide = rng.permutation(2 * n).astype(np.int32)
+        return torch.from_numpy(np.broadcast_to(wide, shape[:-1] + (2 * n,)).copy())[..., ::2]
+    dtype = {"int32": np.int32, "int64": np.int64}[form]
+    return torch.from_numpy(rng.permutation(n).astype(dtype) + (2**35 if form == "int64" else 0)
+                            ).expand(shape).contiguous()
+
+
+# (shape, k, docs form, K4 launches): several launches where a row is
+# wider than one tile; above K4_MAX_K the sort's launches besides
+TOPK_ROUTES = {
+    "one_tile": ((5, 4000), 100, "int32", 1),
+    "k_eq_n": ((3, 500), 500, None, 1),
+    "two_launches": ((3, 70_000), 100, None, 2),
+    "three_launches": ((1, 2**21), 100, None, 3),
+    "ragged_tiles": ((2, 3 * 8192 + 7), 50, "strided", 2),
+    "expanded": ((4, 20_000), 200, "expanded", 2),
+    "lead_dims": ((2, 3, 20_000), 10, "int32", 2),
+    "k4096": ((2, 40_000), 4096, "int64", 2),
+    "k4097": ((2, 40_000), 4097, "int64", 4),
+    "k9000_two_levels": ((1, 100_000), 9000, None, 5),
+    "k_eq_n_above_max": ((3, 5000), 5000, "int32", 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOPK_ROUTES))
+def test_topk_docs_kernel_route_matches_plain(monkeypatch, case):
+    """The wrapper's CUDA route on the CPU, each K4 launch stood in for by
+    the plain version per tile: the launches ``_plan`` asks for, and above
+    ``K4_MAX_K`` the sort's, give the plain result; docs of every form, and
+    positions (int32) where there are none."""
+    shape, k, form, launches = TOPK_ROUTES[case]
+    rng = np.random.default_rng(len(case))
+    x = rng.normal(size=shape).astype(np.float32)
+    x[rng.random(shape) < 0.3] = -np.inf
+    x[..., :7] = 1.5  # a tie across the first tile
+    scores, docs = torch.from_numpy(x), _topk_docs_arg(rng, form, shape)
+    calls = []
+    monkeypatch.setattr(tk, "runs_plain", lambda t: False)
+    monkeypatch.setattr(tk, "_select", _tiled_select(calls))
+    monkeypatch.setattr(tk, "_sort", _sorting(calls))
+    v, d = topk_docs(scores, docs, k)
+    selects = [c for c in calls if c[0] != "sort"]
+    assert [t for _n, t, _k in selects] == tk._plan(shape[-1], k)
+    sorts = [c[1] for c in calls if c[0] == "sort"]
+    assert sorts == ([tk._sort_launches(k)] if k > tk.K4_MAX_K else [])
+    assert len(selects) + sum(sorts) == launches == tk.launches(shape[-1], k)
+    wv, wd = tk.topk_docs_ref(scores, docs, k)
+    assert v.shape == wv.shape == shape[:-1] + (k,) and d.dtype == wd.dtype
+    assert torch.equal(v.view(torch.int32), wv.view(torch.int32))
+    assert torch.equal(d, wd)
+
+
+def _bad_topk(kind):
+    x = torch.zeros((2, 50))
+    return {
+        "f64": (x.double(), None, 5, TypeError),
+        "docs_shape": (x, torch.zeros((2, 49), dtype=torch.int32), 5, ValueError),
+        "k0": (x, None, 0, ValueError),
+        "k_above_n": (x, None, 51, ValueError),
+    }[kind]
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+@pytest.mark.parametrize("kind", ["f64", "docs_shape", "k0", "k_above_n"])
+def test_topk_docs_checks_on_both_routes(monkeypatch, route, kind):
+    """Both routes raise the same errors before any launch."""
+    scores, docs, k, err = _bad_topk(kind)
+    if route == "kernel":
+        monkeypatch.setattr(tk, "runs_plain", lambda t: False)
+        monkeypatch.setattr(tk, "_select", lambda *a: pytest.fail("launched"))
+        monkeypatch.setattr(tk, "_sort", lambda *a: pytest.fail("launched"))
+    with pytest.raises(err):
+        topk_docs(scores, docs, k)
+
+
+def test_topk_docs_kernel_route_takes_int32_or_int64_docs(monkeypatch):
+    monkeypatch.setattr(tk, "runs_plain", lambda t: False)
+    monkeypatch.setattr(tk, "_select", lambda *a: pytest.fail("launched"))
+    with pytest.raises(TypeError, match="int32 or int64"):
+        topk_docs(torch.zeros((2, 50)), torch.zeros((2, 50), dtype=torch.int16), 5)
+
+
+@pytest.mark.parametrize("k", [1, 100, 200, 2048, 2049, 4096, 4097, 30_000])
+def test_topk_plan_shrinks_rows_within_tiles(k):
+    """Every launch of ``_plan`` cuts rows into tiles of 2k..cap entries
+    (so each tile keeps k and a row at least halves), the last one tile."""
+    for n in (k, 4 * k, 8192, 8193, 25_600, 15_625, 2**21 + 3, 10**7):
+        if n < k:
+            continue
+        plan = tk._plan(n, k)
+        assert plan[-1] == 1
+        width = n
+        for tiles in plan:
+            assert -(-width // tiles) <= tk._tile_cap(k)
+            assert tiles == 1 or width // tiles >= 2 * k
+            width = tiles * k
 
 
 @pytest.fixture(scope="module")

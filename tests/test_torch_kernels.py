@@ -1006,8 +1006,8 @@ def second_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_launch_on_their_tensors_card(second_card):
-    """K1, K2 and K3's two forms on cuda:1 tensors while cuda:0 is current,
-    each against its plain version (BM25 bit for bit): each wrapper makes
+    """K1, K2, K3's two forms and K4 on cuda:1 tensors while cuda:0 is
+    current, each against its plain version (bit for bit): each wrapper makes
     its tensors' card current around the launch, and cuda:0 is current
     again after it."""
     dev, to = second_card, _dev(second_card)
@@ -1040,6 +1040,12 @@ def test_kernels_launch_on_their_tensors_card(second_card):
         for g, w in zip(dc.decode_score_rows(*a, avgdl, **kw),
                         dc.decode_score_rows_ref(*a, avgdl, **kw)):
             assert g.device == dev and torch.equal(g, w)
+    from iresearch_tpu_torch.ops import topk as tk
+
+    scores = to(torch.from_numpy(_topk_scores(rng, 5, 20_000, "random")))
+    got = tk.topk_docs(scores, None, 100)
+    assert got[0].device == dev and torch.cuda.current_device() == 0
+    _same_topk(got, tk.topk_docs_ref(scores, None, 100))
     assert torch.cuda.current_device() == 0
 
 
@@ -1229,3 +1235,136 @@ def test_nccl_group_of_one_captures_the_join(nccl_group, cuda_device, card_segme
     for other in (again, prep.run(10, fused=False), prep.run(10, plain=True), want):
         for g, w in zip(got, other):
             _agree(g, w)
+
+
+def _topk_scores(rng, q, n, values):
+    """f32 [q, n] rows: "random" (a third -inf), "ties" (four values),
+    "zeros" (+-0.0 and +-1), "neg_inf" (all -inf), "few_finite" (40
+    finite a row, fewer than k)."""
+    if values == "random":
+        x = rng.normal(size=(q, n)).astype(np.float32)
+        x[rng.random((q, n)) < 0.3] = -np.inf
+    elif values == "ties":
+        x = rng.integers(0, 4, size=(q, n)).astype(np.float32)
+    elif values == "zeros":
+        x = rng.choice(np.asarray([0.0, -0.0, 1.0, -1.0], np.float32), size=(q, n))
+    else:
+        x = np.full((q, n), -np.inf, np.float32)
+        if values == "few_finite":
+            for r in range(q):
+                x[r, rng.choice(n, 40, replace=False)] = rng.normal(size=40)
+    return x
+
+
+def _topk_docs(rng, q, n, form, dev):
+    """docs [q, n] of a form: None (positions), a permutation a row as
+    int32 or int64 (``int64_big``: above 2^40, so that IMAX - doc reaches
+    the key's score half), ``dup`` (50 values: equal keys), ``expanded``
+    (one row, stride 0) or ``strided`` (every other column of a wider
+    array)."""
+    if form is None:
+        return None
+    if form == "expanded":
+        return torch.arange(n, dtype=torch.int32, device=dev).expand(q, n)
+    if form == "dup":
+        return torch.from_numpy(rng.integers(0, 50, size=(q, n)).astype(np.int32)).to(dev)
+    wide = 2 if form == "strided" else 1
+    d = np.stack([rng.permutation(wide * n) for _ in range(q)])
+    if form == "int64_big":
+        return torch.from_numpy(d + 2**40).to(dev)
+    d = torch.from_numpy(d.astype(np.int64 if form == "int64" else np.int32)).to(dev)
+    return d[:, ::2] if form == "strided" else d
+
+
+# (Q, N, k, values, docs): the scan tier's two selects and the index
+# pass's merge, each side of K4_MAX_K (the sort through device memory
+# above it, one merge level and two), ragged and multi-launch rows,
+# awkward values and every docs form
+TOPK_CARD_CASES = {
+    "scan_rescore": (80, 25_600, 100, "random", "int32"),
+    "scan_rows": (80, 15_625, 200, "random", None),
+    "merge": (80, 400, 100, "random", "int32"),
+    "k1": (7, 5_000, 1, "random", None),
+    "k_eq_n": (5, 777, 777, "ties", "int32"),
+    "k4096": (3, 20_000, 4096, "random", "int64"),
+    "k4097": (3, 20_000, 4097, "random", "int64"),
+    "k9000_one_wide_row": (1, 2**20, 9000, "random", None),
+    "k_eq_n_above_max": (3, 5_000, 5_000, "ties", "int32"),
+    "equal_keys_above_max": (2, 20_000, 6_000, "ties", "dup"),
+    "ragged_tiles": (4, 3 * 8192 + 7, 50, "random", None),
+    "one_wide_row": (1, 2**21, 100, "random", None),
+    "all_neg_inf": (6, 10_000, 100, "neg_inf", "int32"),
+    "few_finite": (6, 30_000, 100, "few_finite", None),
+    "heavy_ties": (8, 20_000, 300, "ties", "int32"),
+    "signed_zero": (8, 9_000, 200, "zeros", "int32"),
+    "equal_keys": (4, 12_000, 100, "ties", "dup"),
+    "expanded": (16, 12_000, 100, "random", "expanded"),
+    "strided": (16, 12_000, 100, "random", "strided"),
+    "int64_big": (4, 10_000, 64, "random", "int64_big"),
+}
+
+
+def _same_topk(got, want):
+    """Bit for bit: the values' f32 bits, the docs and their dtype."""
+    assert got[1].dtype == want[1].dtype and got[0].shape == want[0].shape
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TOPK_CARD_CASES))
+def test_topk_kernel_matches_plain_on_card(cuda_device, case):
+    """K4 vs the key path (``topk_docs_ref``) on the same card tensors, bit
+    for bit, with the launches ``_plan`` asks for and, above K4_MAX_K, the
+    sort's."""
+    from iresearch_tpu_torch.kernels import build as kb
+    from iresearch_tpu_torch.ops import topk as tk
+
+    q, n, k, values, form = TOPK_CARD_CASES[case]
+    rng = np.random.default_rng(sorted(TOPK_CARD_CASES).index(case))
+    scores = torch.from_numpy(_topk_scores(rng, q, n, values)).to(cuda_device)
+    docs = _topk_docs(rng, q, n, form, cuda_device)
+    before = kb.launch_counts()["topk_docs"]
+    got = tk.topk_docs(scores, docs, k)
+    torch.cuda.synchronize()
+    launches = kb.launch_counts()["topk_docs"] - before
+    assert launches == tk.launches(n, k) > 0
+    _same_topk(got, tk.topk_docs_ref(scores, docs, k))
+
+
+@pytest.mark.cuda
+def test_topk_kernel_reads_strided_scores_on_card(cuda_device):
+    """Scores that are every other column of a wider array, in two launches."""
+    from iresearch_tpu_torch.ops import topk as tk
+
+    rng = np.random.default_rng(5)
+    wide = torch.from_numpy(_topk_scores(rng, 6, 2 * 20_000, "random")).to(cuda_device)
+    scores = wide[:, ::2]
+    _same_topk(tk.topk_docs(scores, None, 150), tk.topk_docs_ref(scores, None, 150))
+
+
+@pytest.mark.cuda
+def test_topk_kernel_in_captured_graph_on_card(cuda_device):
+    """K4 inside a captured CUDA graph (one launch, two, and two with the
+    sort above K4_MAX_K), replayed over new inputs copied into the captured
+    buffers: each replay equals the key path on those inputs."""
+    from iresearch_tpu_torch.ops import topk as tk
+
+    rng = np.random.default_rng(9)
+    scores = torch.from_numpy(_topk_scores(rng, 80, 25_600, "random")).to(cuda_device)
+    docs = _topk_docs(rng, 80, 25_600, "int32", cuda_device)
+    tk.topk_docs(scores, docs, 100)  # builds the library and allows its shared memory
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = (tk.topk_docs(scores, docs, 100), tk.topk_docs(scores[:, :400], None, 100),
+               tk.topk_docs(scores[:4], docs[:4], 5000))
+    for seed in (11, 12, 13):
+        rng = np.random.default_rng(seed)
+        scores.copy_(torch.from_numpy(_topk_scores(rng, 80, 25_600, "random")))
+        docs.copy_(_topk_docs(rng, 80, 25_600, "int32", "cpu"))
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_topk(out[0], tk.topk_docs_ref(scores, docs, 100))
+        _same_topk(out[1], tk.topk_docs_ref(scores[:, :400], None, 100))
+        _same_topk(out[2], tk.topk_docs_ref(scores[:4], docs[:4], 5000))
