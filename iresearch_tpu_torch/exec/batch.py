@@ -61,13 +61,18 @@ from iresearch_tpu_torch.exec.executor import (  # noqa: F401 (re-exported)
     segment_body,
     wand_body,
 )
-from iresearch_tpu_torch.exec.skyline import skyline_spec, skyline_topk_batch
+from iresearch_tpu_torch.exec.skyline import (
+    K_MAX,
+    skyline_shape,
+    skyline_spec,
+    skyline_topk_batch,
+)
 from iresearch_tpu_torch.formats.bitpack import BITS
 from iresearch_tpu_torch.formats.spec import BLOCK
 from iresearch_tpu_torch.index.segment import _pow2, device_state
 from iresearch_tpu_torch.kernels import build as kb
 from iresearch_tpu_torch.ops.dense_scan import score_rows
-from iresearch_tpu_torch.ops.topk import _IMAX32
+from iresearch_tpu_torch.ops.topk import _IMAX32, noting_calls
 from iresearch_tpu_torch.search import filters as F
 from iresearch_tpu_torch.search.scorers import BM25, Scorer, f32
 from iresearch_tpu_torch.utils.timer import note, span
@@ -345,6 +350,38 @@ def _stack_rows(arrays, R: int, dtype, fill) -> np.ndarray:
     for j, a in enumerate(arrays):
         out[j, : len(a)] = a
     return out
+
+
+# what every ``QueryBatch.prepare`` sent where, since the process started
+# (``tier_stats``); under ``_TIER_LOCK``
+_TIER_KEYS = ("mode_queries", "mode_groups", "tier_queries", "tier_groups")
+_TIER_LOCK = threading.Lock()
+_TIER_STATS: Dict[str, object] = dict(
+    {key: {} for key in _TIER_KEYS}, prepares=0, past_k_max=0
+)
+
+
+def tier_stats() -> Dict[str, object]:
+    """Since the process started: the ``QueryBatch.prepare`` calls, the
+    queries and signature groups that they sent to each exec mode (the
+    plans' ``exec_mode``: ``mode_queries``, ``mode_groups``) and to each
+    tier (``group_call``'s: ``tier_queries``, ``tier_groups``), and the
+    groups of the skyline's shape (``skyline_shape``) that k above
+    ``K_MAX`` kept from the skyline tier (``past_k_max``). Each prepare's
+    own counts are noted on its ``batch.stack`` span."""
+    with _TIER_LOCK:
+        return {key: dict(v) if isinstance(v, dict) else v for key, v in _TIER_STATS.items()}
+
+
+def _count_tiers(counts: Dict[str, object]) -> None:
+    """Add one prepare's ``counts`` to ``_TIER_STATS``."""
+    with _TIER_LOCK:
+        _TIER_STATS["prepares"] += 1
+        _TIER_STATS["past_k_max"] += counts["past_k_max"]
+        for key in _TIER_KEYS:
+            total = _TIER_STATS[key]
+            for name, n in counts[key].items():
+                total[name] = total.get(name, 0) + n
 
 
 def group_call(
@@ -807,6 +844,9 @@ class _FusedPass:
         self.graph = None
         self.out = self.layout = None
         self.launches: Dict[str, int] = {}
+        # (Q, N, k, doc bytes) of each ``topk_docs`` call of the pass, as
+        # captured (on the CPU: as its last run made them)
+        self.k4: Tuple[tuple, ...] = ()
         self.nodes = 0
         self.capture_s = 0.0
         self.hits = 0
@@ -844,7 +884,8 @@ class _FusedPass:
                         pool=_GRAPH_POOLS.setdefault(dev, torch.cuda.graph_pool_handle()),
                         capture_error_mode="thread_local")
                     try:
-                        out, layout = _flat_outputs(body(self.bufs))
+                        with noting_calls() as k4:
+                            out, layout = _flat_outputs(body(self.bufs))
                         nodes = kb.capture_nodes(side)
                     except BaseException:
                         with contextlib.suppress(RuntimeError):
@@ -855,6 +896,7 @@ class _FusedPass:
             cur.wait_stream(side)
         self.graph, self.out, self.layout = graph, out, layout
         self.launches = {n: c for n, c in launches.items() if c}
+        self.k4 = tuple(k4)
         self.nodes = nodes
 
     def run(self, body):
@@ -863,7 +905,10 @@ class _FusedPass:
         on the CPU ``body`` over the entry's buffers. Nothing waits for
         the device."""
         if self.graph is None:
-            return _split_outputs(*_flat_outputs(body(self.bufs)))
+            with noting_calls() as k4:
+                outs = body(self.bufs)
+            self.k4 = tuple(k4)
+            return _split_outputs(*_flat_outputs(outs))
         with current_card(self.device):
             self.graph.replay()
             out = self.out.clone()
@@ -886,12 +931,13 @@ class _FusedGroup:
 def _new_pass(device, bufs, body, kept):
     """A new entry for ``body`` over buffers like ``bufs`` on ``device``:
     on the card its graph captured (span ``fused.capture``, the warm-up
-    included)."""
+    included; ``k4`` the top-k calls that the warm-up ran and the graph
+    holds)."""
     with span("fused.capture"):
         entry = _FusedPass(device, bufs, kept)
         if device.type == "cuda":
             entry.capture(body)
-            note(nodes=entry.nodes, launches=dict(entry.launches))
+            note(nodes=entry.nodes, launches=dict(entry.launches), k4=entry.k4)
         return entry
 
 
@@ -931,14 +977,16 @@ def _run_fused(kind: str, key, bufs, body, kept=()):
     "single"): on a miss a new entry (on the card its graph captured), on
     a hit ``bufs`` copied into the entry's own. Span ``fused.run``, its
     children ``fused.capture`` (a miss), ``fused.load`` (a hit) and
-    ``fused.replay``."""
+    ``fused.replay`` (``k4``: the shapes of the top-k calls it ran)."""
     with span("fused.run", kind=kind), _FUSED_LOCK:
         entry, hit = _cached(kind, key, lambda: _new_pass(bufs[0].device, bufs, body, kept))
         if hit:
             with span("fused.load"):
                 entry.load(bufs)
         with span("fused.replay"):
-            return entry.run(body)
+            out = entry.run(body)
+            note(k4=entry.k4)
+            return out
 
 
 def _run_fused_group(kind: str, key, parts, kept=()):
@@ -957,7 +1005,9 @@ def _run_fused_group(kind: str, key, parts, kept=()):
                 for p, (_dev, bufs, _body) in zip(entry.passes, parts):
                     p.load(bufs)
         with span("fused.replay"):
-            return [p.run(body) for p, (_dev, _bufs, body) in zip(entry.passes, parts)]
+            outs = [p.run(body) for p, (_dev, _bufs, body) in zip(entry.passes, parts)]
+            note(k4=tuple(c for p in entry.passes for c in p.k4))
+            return outs
 
 
 class _Rows(NamedTuple):
@@ -1108,6 +1158,7 @@ class QueryBatch:
                 for qi, sig in enumerate(sigs):
                     groups[sig].append(qi)
                 calls = []
+                counts: Dict[str, object] = dict({key: {} for key in _TIER_KEYS}, past_k_max=0)
                 for sig, qis in groups.items():
                     sky_M = sig[10]
                     tier, fn, args, kwargs = group_call(
@@ -1119,6 +1170,17 @@ class QueryBatch:
                         single=False,
                     )
                     calls.append((tier, qis, fn, args, kwargs))
+                    p0 = plans[qis[0]]
+                    for key, name, n in (("mode_queries", p0.exec_mode, len(qis)),
+                                         ("mode_groups", p0.exec_mode, 1),
+                                         ("tier_queries", tier, len(qis)),
+                                         ("tier_groups", tier, 1)):
+                        counts[key][name] = counts[key].get(name, 0) + n
+                    if (sky_M is None and min(k, p0.nd_pad) > K_MAX
+                            and skyline_shape(p0) is not None):
+                        counts["past_k_max"] += 1
+                _count_tiers(counts)
+                note(**counts)
             return PreparedBatch(len(plans), calls, self.device)
 
     def prepare_all(self, k: int):

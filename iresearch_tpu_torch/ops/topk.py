@@ -20,10 +20,16 @@ row wider than one tile takes more than one launch (``_plan``); above
 select leaves them unsorted and ``_sort`` orders them through device
 memory. A launch goes to the current stream of the scores' card, made the
 current card around the foreign call.
+
+``noting_calls()`` collects the shape of every ``topk_docs`` call that its
+thread makes inside the block, (Q, N, k, doc bytes): the fused pass notes
+the calls that it captured (``exec/batch.py:_FusedPass``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import List, Optional
 
 import torch
@@ -34,6 +40,20 @@ from iresearch_tpu_torch.kernels import build as kb
 _IMAX32 = 2**31 - 1
 K4_MAX_K = 4096  # irs_topk.cu:K4_MAX_K, the most winners a launch sorts
 _DOCS_KIND = {None: 0, torch.int32: 1, torch.int64: 2}
+_NOTED = threading.local()  # .calls: the list ``noting_calls`` fills, or None
+
+
+@contextlib.contextmanager
+def noting_calls():
+    """A block in which each ``topk_docs`` call of this thread appends
+    (rows Q, entries a row N, k, bytes of a doc: 4 or 8, 0 where it ranks
+    by position) to the list it yields."""
+    prev = getattr(_NOTED, "calls", None)
+    _NOTED.calls = calls = []
+    try:
+        yield calls
+    finally:
+        _NOTED.calls = prev
 
 
 def _order_key(scores: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
@@ -146,6 +166,11 @@ def topk_docs(
     axis by (score desc, doc asc). ``docs=None`` ranks by position (the
     ``lax.top_k`` order) and returns positions as int32. On a CUDA tensor
     ``docs`` is int32 or int64 on the same card."""
+    noted = getattr(_NOTED, "calls", None)
+    if noted is not None:
+        n = scores.shape[-1]
+        noted.append((scores.numel() // n if n else 0, n, k,
+                      0 if docs is None else docs.element_size()))
     if runs_plain(scores):
         return topk_docs_ref(scores, docs, k)
     _check(scores, docs, k)

@@ -131,6 +131,55 @@ def test_hit_attributes_equal_the_counters(segs):
     assert fused1["evictions"] == fused0["evictions"]
 
 
+def test_tier_counts_equal_the_stack_attributes(segs):
+    """Each ``batch.stack`` span carries its prepare's counts by exec mode
+    and tier, and their sums are the deltas of ``tier_stats()``; every
+    query and group is counted once in each."""
+    filters = _filters(segs, 6)
+    before = B.tier_stats()
+    _out, (spans, _) = _traced(lambda: [_served(filters, segs),
+                                        QueryBatch(filters, segs, BM25(), device="cpu")
+                                        .prepare(0, 200)])
+    after = B.tier_stats()
+    stacks = [s.attrs for s in spans if s.name == "batch.stack"]
+    assert len(stacks) == 3 == after["prepares"] - before["prepares"]
+    for key in B._TIER_KEYS:
+        want = {m: n - before[key].get(m, 0) for m, n in after[key].items()
+                if n != before[key].get(m, 0)}
+        got = {}
+        for attrs in stacks:
+            for m, n in attrs[key].items():
+                got[m] = got.get(m, 0) + n
+        assert got == want, key
+    assert after["past_k_max"] - before["past_k_max"] == sum(a["past_k_max"] for a in stacks)
+    for attrs in stacks:
+        assert sum(attrs["mode_queries"].values()) == sum(attrs["tier_queries"].values())
+        assert sum(attrs["mode_groups"].values()) == sum(attrs["tier_groups"].values())
+    # top 200 turns the single dense terms' groups away from the skyline
+    assert stacks[-1]["past_k_max"] > 0 and "skyline" not in stacks[-1]["tier_groups"]
+    assert sum(stacks[0]["mode_queries"].values()) == len(filters)
+
+
+def test_k4_shapes_on_the_replay_equal_the_calls(segs, monkeypatch):
+    """A fused pass notes on ``fused.replay`` the (Q, N, k, doc bytes) of
+    every ``topk_docs`` call that it ran, in order: the calls that a
+    spy on the kernel set sees."""
+    seen = []
+    topk = B.KERNELS.topk
+
+    def spy(scores, docs, k):
+        n = scores.shape[-1]
+        seen.append((scores.numel() // n, n, k, 0 if docs is None else docs.element_size()))
+        return topk(scores, docs, k)
+
+    monkeypatch.setattr(B, "KERNELS", B.KERNELS._replace(topk=spy))
+    prep = QueryBatch(_filters(segs, 6), segs, BM25(), device="cpu").prepare(0, 50)
+    _out, (spans, _) = _traced(prep.run_grouped)
+    (replay,) = [s for s in spans if s.name == "fused.replay"]
+    assert seen and replay.attrs["k4"] == tuple(seen)
+    assert all(q >= 1 and n >= k for q, n, k, _b in seen) and {b for *_x, b in seen} <= {0, 4, 8}
+
+
 def test_plan_cache_counts_evictions_and_plans_not_stored(segs, monkeypatch):
     """Past ``_CACHE_MAX`` the oldest plans are evicted and counted; a plan
     over ``_ROW_LIMIT`` rows is compiled, not stored, and counted."""
